@@ -1,0 +1,705 @@
+#!/usr/bin/env python3
+"""Smoke test of the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA GPU.
+
+Run ``python3 chip_smoke.py`` from the repository root. It
+
+1. builds the CUDA kernels from ``src/repro_torch/csrc`` with ``nvcc``,
+2. holds each kernel against its plain PyTorch version on the GPU at the
+   layer shapes of the full-width ``ResNetConfig()`` (bit equality for int8
+   outputs and skip counters, <= 1e-4 for f32), timing kernel, plain version
+   and ``F.conv2d`` as a yardstick (``*_ms``: device time per launch with
+   the launches queued back to back; ``*_call_ms``: one call on an idle
+   device, host-side wrapper included),
+3. serves the full-width, HAPM-pruned (0.5), random-weight network through
+   ``CnnServer`` in both tile layouts (implicit kernel on all 21 layers), the
+   materializing contract, the default command-line contract and every rung
+   of the degradation ladder, checking logits against a CPU server that runs
+   the plain versions, and proving by launch counts that the kernels ran,
+4. prints one JSON line per phase, then the card's name and power limit, a
+   ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device": {...}}``.
+
+Any failing phase raises: the exit code is non-zero and no ``ok`` line is
+printed. Without a CUDA device the script exits with code 2 before printing
+any result. ``--log FILE`` also appends every phase line to a file.
+
+The ``kernels`` line gives each kernel at the layer the network runs most
+often: ``ms`` is the device time per launch with launches queued back to
+back, ``call_ms`` one call on an idle device. ``bound_ms`` counts what the
+convolution needs (real output rows and channels); ``bound_padded_ms`` also
+counts the padded lanes and rows the kernel's output array carries.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import statistics
+import subprocess
+import sys
+import time
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+sys.path.insert(0, os.path.join(ROOT, "src"))
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from repro_torch import kernels
+from repro_torch.core import (HAPMConfig, apply_masks, hapm_element_masks,
+                              hapm_epoch_update, hapm_init)
+from repro_torch.core.groups import fpga_conv_groups
+from repro_torch.core.masks import tree_map
+from repro_torch.core.quant import QuantSpec
+from repro_torch.kernels import _build
+from repro_torch.kernels import block_sparse_matmul as BSM
+from repro_torch.kernels import implicit_conv as IC
+from repro_torch.kernels.conv_lowering import (conv_out_size, im2col_patches,
+                                               pad_nhwc, same_pads)
+from repro_torch.kernels.ops import _pad_rows
+from repro_torch.launch import serve_cnn
+from repro_torch.launch.serve_cnn import CnnServer
+from repro_torch.models import cnn
+from repro_torch.sparse.conv_plan import (adaptive_bm, conv_gemm_layout,
+                                          plan_from_tile_mask)
+
+# published peaks of one H100 SXM (dense): memory rate, int8 tensor rate,
+# f32 rate outside the tensor cores
+PEAK_BYTES_S = 3.35e12
+PEAK_OPS_S = {"int8": 1979e12, "f32": 67e12}
+
+KERNEL_INFO = {
+    "block_sparse_matmul": {
+        "route": "cuda",
+        "source": "src/repro_torch/csrc/block_sparse_matmul.cu",
+        "replaces": "src/repro/kernels/block_sparse_matmul.py:187"},
+    "implicit_block_sparse_conv": {
+        "route": "cuda",
+        "source": "src/repro_torch/csrc/implicit_conv.cu",
+        "replaces": "src/repro/kernels/implicit_conv.py:347"},
+}
+
+F32_TOL = 1e-4          # f32 kernels vs plain: summation order differs
+LOGIT_TOL = 1e-5        # int8 contracts: convs exact, only the head's mean+matmul differs
+N_CU = 12
+SPARSITY = 0.5
+
+
+LOG_PATH = None         # --log: every phase line is also appended here
+
+
+def emit(phase: str, **fields) -> None:
+    line = json.dumps({"phase": phase, **fields}, default=str)
+    print(line, flush=True)
+    if LOG_PATH is not None:
+        with open(LOG_PATH, "a") as f:
+            f.write(line + "\n")
+
+
+def gpu_name_and_limit() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True, timeout=60)
+    return out.stdout.strip().splitlines()[0] if out.stdout.strip() else "unknown"
+
+
+def sync(device) -> None:
+    torch.cuda.synchronize(device)
+
+
+def time_ms(fn, device, reps: int, warmup: int = 3) -> float:
+    """Median time of one ``fn()`` call in ms as its caller sees it on an
+    idle device: CUDA events around each call (host-side wrapper work
+    included)."""
+    for _ in range(warmup):
+        fn()
+    sync(device)
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return statistics.median(times)
+
+
+_BUSY = {}
+
+
+def device_ms(fn, device, reps: int, rounds: int = 5) -> float:
+    """Device time of one ``fn()`` in ms with the host taken out: a long
+    matrix product keeps the GPU busy while the host enqueues ``reps`` calls
+    behind it, so the calls then run back to back and the events around them
+    measure the device alone. Median over ``rounds``. (Inputs are re-read
+    from a warm L2, as a serving layer finds what the previous layer wrote.)"""
+    if device not in _BUSY:
+        _BUSY[device] = torch.randn(8192, 8192, device=device)
+    big = _BUSY[device]
+    fn()
+    sync(device)
+    out = []
+    for _ in range(rounds):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        torch.mm(big, big)             # ~20 ms of f32 work ahead of the queue
+        a.record()
+        for _ in range(reps):
+            fn()
+        b.record()
+        b.synchronize()
+        out.append(a.elapsed_time(b) / reps)
+    return statistics.median(out)
+
+
+# ---------------------------------------------------------------------------
+# model and data, made from a seed with numpy
+# ---------------------------------------------------------------------------
+
+def numpy_model(cfg: cnn.ResNetConfig, seed: int):
+    """(params, state) as nested dicts of numpy arrays with the package's
+    keys: He-normal conv weights, non-trivial BN statistics (so folding and
+    per-cout calibration do real work)."""
+    rs = np.random.RandomState(seed)
+
+    def conv(kx, ky, cin, cout):
+        return {"w": (rs.randn(kx, ky, cin, cout)
+                      * np.sqrt(2.0 / (kx * ky * cin))).astype(np.float32)}
+
+    def bn(c):
+        return ({"scale": rs.uniform(0.5, 1.5, c).astype(np.float32),
+                 "bias": (0.1 * rs.randn(c)).astype(np.float32)},
+                {"mean": (0.1 * rs.randn(c)).astype(np.float32),
+                 "var": rs.uniform(0.5, 1.5, c).astype(np.float32)})
+
+    params = {"conv0": conv(3, 3, cfg.in_channels, cfg.widths[0])}
+    state = {}
+    params["bn0"], state["bn0"] = bn(cfg.widths[0])
+    cin = cfg.widths[0]
+    for si, (n_blocks, width) in enumerate(zip(cfg.stages, cfg.widths)):
+        for bi in range(n_blocks):
+            stride = 2 if (si > 0 and bi == 0) else 1
+            blk, st = {}, {}
+            blk["conv1"] = conv(3, 3, cin, width)
+            blk["bn1"], st["bn1"] = bn(width)
+            blk["conv2"] = conv(3, 3, width, width)
+            blk["bn2"], st["bn2"] = bn(width)
+            if stride != 1 or cin != width:
+                blk["proj"] = conv(1, 1, cin, width)
+                blk["bnp"], st["bnp"] = bn(width)
+            params[f"s{si}b{bi}"], state[f"s{si}b{bi}"] = blk, st
+            cin = width
+    params["fc"] = {"w": (rs.randn(cin, cfg.num_classes)
+                          * np.sqrt(1.0 / cin)).astype(np.float32),
+                    "b": np.zeros(cfg.num_classes, np.float32)}
+    return params, state
+
+
+def pruned_model(cfg, seed, n_cu, device):
+    """The seeded model on ``device`` with HAPM group sparsity 0.5 applied
+    (one epoch, as ``serve_cnn.main`` prunes)."""
+    params, state = cnn.params_from_numpy(*numpy_model(cfg, seed), device=device)
+    specs = cnn.conv_group_specs(params, n_cu)
+    hcfg = HAPMConfig(SPARSITY, 1)
+    st = hapm_epoch_update(hapm_init(specs, hcfg), specs, params, hcfg)
+    return apply_masks(params, hapm_element_masks(specs, st)), state
+
+
+# ---------------------------------------------------------------------------
+# phase: kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+def layer_geometries(cfg: cnn.ResNetConfig):
+    """One (name, H, stride, k, cin, cout) per distinct conv geometry of the
+    network, in execution order."""
+    seen, out = set(), []
+    feat, cin = cfg.image_size, cfg.in_channels
+    geoms = [("conv0", feat, 1, 3, cin, cfg.widths[0])]
+    cin = cfg.widths[0]
+    for si, n_blocks in enumerate(cfg.stages):
+        for bi in range(n_blocks):
+            stride = 2 if (si > 0 and bi == 0) else 1
+            width = cfg.widths[si]
+            o = -(-feat // stride)
+            geoms.append((f"s{si}b{bi}/conv1", feat, stride, 3, cin, width))
+            geoms.append((f"s{si}b{bi}/conv2", o, 1, 3, width, width))
+            if stride != 1 or cin != width:
+                geoms.append((f"s{si}b{bi}/proj", feat, stride, 1, cin, width))
+            feat, cin = o, width
+    for g in geoms:
+        if g[1:] not in seen:
+            seen.add(g[1:])
+            out.append(g)
+    return out
+
+
+def make_case(geom, packed: bool, mode: str, batch: int, n_cu: int, device,
+              rs: np.random.RandomState):
+    """Operands of both kernels for one conv layer, as ``make_sparse_conv``
+    would hand them over: packed (masked) weight, dispatch table, epilogue
+    rows, the padded activation (implicit kernel) and the packed patch
+    matrix (matmul kernel). ``mode``: "f32", "int8" (f32 out) or "streamed"
+    (int8 codes out, activation-DSB with skip counting). Half the groups
+    are pruned at random and the last f_block column entirely, so one
+    output tile column has cnt == 0 in the unpacked layout."""
+    name, H, stride, k, cin, cout = geom
+    spec = fpga_conv_groups((k, k, cin, cout), n_cu)
+    layout = conv_gemm_layout(spec, packed=packed)
+    gm = (rs.rand(cin, spec.n_fblocks) > SPARSITY).astype(np.float32)
+    gm[:, -1] = 0.0
+    gm = gm.reshape(-1)
+    w = (rs.randn(k, k, cin, cout) * np.sqrt(2.0 / (k * k * cin))).astype(np.float32)
+    bias = (0.1 * rs.randn(cout)).astype(np.float32)
+    # post-ReLU-like activation with whole zero regions (exercises the skip)
+    x = np.maximum(rs.randn(batch, H, H, cin), 0).astype(np.float32)
+    x[: batch // 2, : H // 2] = 0.0
+    w_t = torch.from_numpy(w).to(device)
+    x_t = torch.from_numpy(x).to(device)
+    wm = spec.expand(gm).to(device) * w_t
+    quant = None if mode == "f32" else QuantSpec.calibrate(w_t)
+    if quant is None:
+        wp, xin = layout.pack_weight(wm), x_t
+        scale = out_scale = None
+    else:
+        wp, xin = layout.pack_weight(quant.weight_codes(wm)), quant.act_codes(x_t)
+        scale = layout.pack_bias(quant.dequant_row(cout, device))
+        out_scale = (layout.pack_bias(torch.full((cout,), QuantSpec().act_scale,
+                                                 device=device))
+                     if mode == "streamed" else None)
+    plan = plan_from_tile_mask(layout.tile_mask(gm), layout.block)
+    idx = torch.from_numpy(plan.idx).to(device)
+    cnt = torch.from_numpy(plan.cnt).to(device)
+    pbias = layout.pack_bias(torch.from_numpy(bias).to(device))
+    ho = conv_out_size(H, k, stride, "SAME")
+    mb = IC.choose_m_block(ho, ho)
+    geo = layout.implicit_geometry()
+    xp = IC.pad_input(xin, k, k, stride, "SAME", mb, layout.tiles[0] * geo["cpk"])
+    bm1 = adaptive_bm(batch * ho * ho)
+    p2d, _ = _pad_rows(layout.pack_patches(im2col_patches(xin, k, k, stride, "SAME")), bm1)
+    itemsize = xin.element_size()
+    out_itemsize = 1 if mode == "streamed" else 4
+    real_out = batch * ho * ho * cout
+    live_tiles = int(plan.cnt.sum())
+    live_k = len({int(t) for j in range(plan.idx.shape[0])
+                  for t in plan.idx[j, :plan.cnt[j]]})
+    live_elems, _ = layout.mac_accounting(gm)
+    n_rows = 1 + (scale is not None) + (out_scale is not None)
+    table_bytes = plan.idx.nbytes + plan.cnt.nbytes
+    w_bytes = live_tiles * layout.block[0] * layout.block[1] * itemsize
+    ops = 2 * batch * ho * ho * live_elems
+    peak = PEAK_OPS_S["f32" if mode == "f32" else "int8"]
+
+    def bound(in_bytes, out_rows):
+        """(ms, by, padded ms). The bound charges the output and the
+        epilogue rows at the layer's real size (ho * wo rows, cout
+        channels); the padded figure charges the array the kernel writes
+        (rows padded to the M-block, channels to the tile's lanes), which
+        on a narrow layer is most of its bytes."""
+        fixed = in_bytes + w_bytes + table_bytes
+        real = fixed + n_rows * cout * 4 + real_out * out_itemsize
+        padded = (fixed + n_rows * layout.n_packed * 4
+                  + out_rows * layout.n_packed * out_itemsize)
+        t_b, t_o = real / PEAK_BYTES_S, ops / peak
+        return (max(t_b, t_o) * 1e3, "bytes" if t_b >= t_o else "operations",
+                max(padded / PEAK_BYTES_S, t_o) * 1e3)
+
+    # each input byte once: the activation channels / patch columns of the
+    # K-tiles that are live in some column, each live weight tile, the rows
+    # and the table; each output byte once
+    k2_in = batch * xp.shape[1] * xp.shape[2] * live_k * geo["cpk"] * itemsize
+    k1_in = p2d.shape[0] * live_k * layout.block[0] * itemsize
+    return {
+        "name": name, "packed": packed, "mode": mode, "batch": batch,
+        "k": k, "stride": stride, "H": H, "cin": cin, "cout": cout, "ho": ho,
+        "x": x_t, "w": w_t, "layout": layout,
+        "common": dict(w=wp.contiguous(), idx=idx, cnt=cnt, bias=pbias,
+                       scale=scale, out_scale=out_scale),
+        "k2": dict(xp=xp.contiguous(), kx=k, ky=k, stride=stride, mb=mb,
+                   block=layout.block, cpk=geo["cpk"], slot=geo["slot"],
+                   relu=True, activation_dsb=(mode == "streamed"),
+                   count_skips=(mode == "streamed")),
+        "k1": dict(x=p2d.contiguous(), block=layout.block, bm=bm1, relu=True),
+        "bound_k2": bound(k2_in, batch * mb.bpi * mb.bm),
+        "bound_k1": bound(k1_in, p2d.shape[0]),
+    }
+
+
+def run_k2(fn, case):
+    c, k2 = case["common"], case["k2"]
+    return fn(k2["xp"], c["w"], c["idx"], c["cnt"], c["bias"], c["scale"],
+              c["out_scale"], **{k: v for k, v in k2.items() if k != "xp"})
+
+
+def run_k1(fn, case):
+    c, k1 = case["common"], case["k1"]
+    return fn(k1["x"], c["w"], c["idx"], c["cnt"], c["bias"], c["scale"],
+              c["out_scale"], block=k1["block"], bm=k1["bm"], relu=k1["relu"])
+
+
+def compare(name: str, got, want, case) -> float:
+    """Max abs error kernel vs plain; raises unless int8 outputs (and skip
+    counters) are bit-equal and float outputs within F32_TOL (f32 operands:
+    other summation order) or exactly equal (int8 operands: exact integer
+    accumulation, identical epilogue)."""
+    label = f"{name} {case['name']} packed={case['packed']} mode={case['mode']}"
+    if isinstance(got, tuple):
+        (got, skips_k), (want, skips_p) = got, want
+        if not torch.equal(skips_k, skips_p):
+            raise AssertionError(f"{label}: skip counters differ "
+                                 f"({int(skips_k.sum())} vs {int(skips_p.sum())})")
+    if got.shape != want.shape or got.dtype != want.dtype:
+        raise AssertionError(f"{label}: {got.shape}/{got.dtype} vs "
+                             f"{want.shape}/{want.dtype}")
+    err = float((got.to(torch.float64) - want.to(torch.float64)).abs().max())
+    if not bool(torch.isfinite(got.to(torch.float32)).all()):
+        raise AssertionError(f"{label}: non-finite output")
+    tol = F32_TOL if case["mode"] == "f32" else 0.0
+    if err > tol:
+        raise AssertionError(f"{label}: max abs err {err} > {tol}")
+    return err
+
+
+OWN_KERNELS = ("implicit_conv_kernel", "block_sparse_matmul_kernel")
+
+
+def profiler_device_ms(fn, device, reps: int):
+    """Device time per ``fn()`` call from the profiler, as a cross-check of
+    ``device_ms`` and as the split of a request: ``{"total_ms": all GPU
+    kernels and copies that ``reps`` calls put on the device, per call,
+    "kernels_ms": the share of this repo's own CUDA kernels}``. Only
+    device-side events are summed (an operator's host-side event repeats
+    its kernels' time). ``None`` where the profiler cannot trace the device
+    or records no device time. (``fn`` has already run once,
+    unprofiled, when tracing starts: an error of ``fn`` itself is not hidden.)"""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    sync(device)
+    try:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            sync(device)
+    except RuntimeError as e:       # no device tracing here: an auxiliary
+        print(f"chip_smoke: profiler unavailable ({e})", file=sys.stderr)
+        return None                 # figure is missing, nothing is wrong
+    total_us = own_us = 0.0
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        t = float(getattr(e, "self_device_time_total", 0.0))
+        total_us += t
+        if any(name in e.key for name in OWN_KERNELS):
+            own_us += t
+    if total_us <= 0:
+        return None
+    return {"total_ms": total_us / reps / 1e3, "kernels_ms": own_us / reps / 1e3}
+
+
+def library_ms(case, device, reps) -> float:
+    """``F.conv2d`` (f32, TF32 off) on the same layer and batch — a
+    yardstick only; the port's bound path never calls it."""
+    k, stride = case["k"], case["stride"]
+    x, w = case["x"], case["w"]
+    xn = pad_nhwc(x, same_pads(x.shape[1], k, stride),
+                  same_pads(x.shape[2], k, stride)).permute(0, 3, 1, 2).contiguous()
+    wn = w.permute(3, 2, 0, 1).contiguous()
+
+    fn = lambda: F.conv2d(xn, wn, stride=stride)
+    with torch.backends.cudnn.flags(allow_tf32=False):
+        if case.get("profile"):
+            prof = profiler_device_ms(fn, device, reps)
+            case["library_profiler_ms"] = None if prof is None else prof["total_ms"]
+        return device_ms(fn, device, reps)
+
+
+def phase_kernels(cfg, device, batch: int, reps: int, plain_reps: int):
+    rs = np.random.RandomState(7)
+    cases_out = []
+    worst = {"block_sparse_matmul": 0.0, "implicit_block_sparse_conv": 0.0}
+    rep = {}
+    for geom in layer_geometries(cfg):
+        for packed in (False, True):
+            for mode in ("f32", "int8", "streamed"):
+                case = make_case(geom, packed, mode, batch, N_CU, device, rs)
+                row = {k: case[k] for k in ("name", "packed", "mode", "batch",
+                                            "H", "stride", "k", "cin", "cout")}
+                row["live_tiles"] = int(case["common"]["cnt"].sum())
+                row["pruned_columns"] = int((case["common"]["cnt"] == 0).sum())
+                for kname, run, kern, plain, bkey in (
+                        ("implicit_block_sparse_conv", run_k2,
+                         IC.implicit_block_sparse_conv,
+                         IC.implicit_block_sparse_conv_plain, "bound_k2"),
+                        ("block_sparse_matmul", run_k1, BSM.block_sparse_matmul,
+                         BSM.block_sparse_matmul_plain, "bound_k1")):
+                    got = run(kern, case)
+                    sync(device)
+                    want = run(plain, case)
+                    err = compare(kname, got, want, case)
+                    worst[kname] = max(worst[kname], err)
+                    tag = "k2" if kname.startswith("implicit") else "k1"
+                    row[f"{tag}_max_abs_err"] = err
+                    row[f"{tag}_ms"] = device_ms(lambda: run(kern, case), device, reps)
+                    row[f"{tag}_call_ms"] = time_ms(lambda: run(kern, case), device, reps)
+                    row[f"{tag}_plain_ms"] = time_ms(lambda: run(plain, case),
+                                                     device, plain_reps, warmup=1)
+                    (row[f"{tag}_bound_ms"], row[f"{tag}_bound_by"],
+                     row[f"{tag}_bound_padded_ms"]) = case[bkey]
+                    if isinstance(got, tuple):
+                        row["skipped_steps"] = int(got[1].sum())
+                        row["live_steps"] = int(got[1].shape[0]) * row["live_tiles"]
+                # the representative shape of each kernel's summary line: the
+                # layer geometry the main path runs most often (3x3, stride 1,
+                # 16 -> 16 channels at 32x32), one group per tile, streamed int8
+                is_rep = (geom[1:] == (cfg.image_size, 1, 3, cfg.widths[0], cfg.widths[0])
+                          and not packed and mode == "streamed")
+                if is_rep:
+                    case["profile"] = True
+                    for tag, run, kern in (("k2", run_k2, IC.implicit_block_sparse_conv),
+                                           ("k1", run_k1, BSM.block_sparse_matmul)):
+                        prof = profiler_device_ms(lambda: run(kern, case), device, reps)
+                        row[f"{tag}_profiler_ms"] = None if prof is None else prof["total_ms"]
+                row["library_ms"] = library_ms(case, device, reps)
+                if is_rep:
+                    row["library_profiler_ms"] = case.get("library_profiler_ms")
+                    rep = row
+                cases_out.append(row)
+    emit("kernels", batch=batch, f32_tol=F32_TOL, int8_tol=0.0,
+         reps=reps, plain_reps=plain_reps, cases=cases_out)
+    return worst, rep
+
+
+# ---------------------------------------------------------------------------
+# phases: serving
+# ---------------------------------------------------------------------------
+
+def request_sizes(buckets):
+    """1, 8, 5, 32, 128 and 200 frames at the default buckets: exact fits,
+    padding (5 -> 8) and chunking (200 -> 128 + 72 padded to 128)."""
+    top = max(buckets)
+    return [1, min(8, top), min(5, top), min(32, top), top, top + (top * 9) // 16]
+
+
+def n_chunks(n: int, buckets) -> int:
+    return -(-n // max(buckets))
+
+
+def serve_phase(name, cfg, spec, buckets, models, frames, devices, *,
+                sizes, kernel_name, tol=LOGIT_TOL):
+    """Serve ``sizes`` requests through a server on the GPU and the same
+    server on the CPU (plain versions); logits must agree within ``tol``.
+    Returns (gpu server, launches of ``kernel_name`` during the requests)."""
+    dev, ref_dev = devices
+    srv = CnnServer(*models[dev], cfg, spec=spec, buckets=buckets, device=dev)
+    ref = CnnServer(*models[ref_dev], cfg, spec=spec, buckets=buckets, device=ref_dev)
+    t0 = time.time()
+    srv.warmup()
+    warm_s = time.time() - t0
+    table = srv._bind().table
+    n_layers = len(table)
+    dense_layers = sum(v is None for v in table.values())
+    if dense_layers:
+        raise AssertionError(f"{name}: {dense_layers} of {n_layers} layers "
+                             "took the dense route (dense_fallback=2.0 must "
+                             "bind every layer)")
+    before = kernels.launch_counts()
+    errs, lo, chunks = [], 0, 0
+    for n in sizes:
+        x = frames[lo:lo + n]
+        lo += n
+        y = srv.infer(x)
+        sync(dev)
+        y_ref = ref.infer(x)
+        if tuple(y.shape) != (n, cfg.num_classes) or not bool(torch.isfinite(y).all()):
+            raise AssertionError(f"{name}: bad logits for a {n}-frame request")
+        errs.append(float((y.cpu() - y_ref.cpu()).abs().max()))
+        chunks += n_chunks(n, buckets)
+    after = kernels.launch_counts()
+    launched = {k: after[k] - before[k] for k in after}
+    worst = max(errs)
+    if worst > tol:
+        raise AssertionError(f"{name}: logits differ from the CPU server by "
+                             f"{worst} > {tol} (per request: {errs})")
+    want = n_layers * chunks
+    if launched[kernel_name] != want:
+        raise AssertionError(f"{name}: {kernel_name} launched "
+                             f"{launched[kernel_name]} times, expected "
+                             f"{n_layers} layers x {chunks} chunks = {want}")
+    emit(name, spec=repr(spec), requests=sizes, chunks=chunks, layers=n_layers,
+         dense_layers=dense_layers, launches=launched, expected_launches=want,
+         max_abs_err_vs_cpu=worst, per_request_err=errs, tol=tol, warmup_s=warm_s, stats=srv.stats())
+    return srv, launched
+
+
+def phase_default_cli(device):
+    """The normal entry point as a user runs it."""
+    argv = ["--no-smoke", "--activation-dsb", "--requests", "8"]
+    before = kernels.launch_counts()
+    srv = serve_cnn.main(argv)
+    sync(device)
+    after = kernels.launch_counts()
+    exec_ = srv._bind()
+    bound = sum(v is not None for v in exec_.table.values())
+    h = srv.cfg.image_size
+    x = torch.from_numpy(np.random.RandomState(3).rand(8, h, h, 3).astype(np.float32))
+    dsb = exec_.measure_dsb_skip(srv._tree, x.to(srv.device), srv.run_cfg)
+    y = srv.infer(x)
+    if not bool(torch.isfinite(y).all()):
+        raise AssertionError("serve_default: non-finite logits")
+    emit("serve_default", argv=argv, layers=len(exec_.table), layers_bound=bound,
+         layers_dense=len(exec_.table) - bound,
+         launches={k: after[k] - before[k] for k in after},
+         dsb_skip_frac=dsb["dsb_skip_frac"],
+         dsb_skipped_steps=dsb["dsb_skipped_steps"],
+         dsb_live_steps=dsb["dsb_live_steps"], stats=srv.stats())
+
+
+def phase_ladder(cfg, spec, buckets, models, frames, devices):
+    dev, ref_dev = devices
+    srv = CnnServer(*models[dev], cfg, spec=spec, buckets=buckets, device=dev)
+    ref = CnnServer(*models[ref_dev], cfg, spec=spec, buckets=buckets, device=ref_dev)
+    n = min(8, max(buckets))
+    rungs = []
+    for level, rung in enumerate(srv.rungs):
+        srv.force_level(level)
+        ref.force_level(level)
+        y, y_ref = srv.infer(frames[:n]), ref.infer(frames[:n])
+        sync(dev)
+        rname = serve_cnn.rung_name(rung)
+        # int8 rungs: convs exact; f32 and dense rungs: float summation order
+        tol = LOGIT_TOL if rname in ("streamed", "quantized") else F32_TOL
+        err = float((y.cpu() - y_ref.cpu()).abs().max())
+        if srv.last_request_level != level or not bool(torch.isfinite(y).all()):
+            raise AssertionError(f"ladder: rung {rname} did not serve cleanly")
+        if err > tol:
+            raise AssertionError(f"ladder: rung {rname} differs from the CPU "
+                                 f"server by {err} > {tol}")
+        rungs.append({"level": level, "rung": rname, "max_abs_err_vs_cpu": err,
+                      "tol": tol})
+    emit("ladder", rungs=rungs)
+
+
+def phase_timing(servers, buckets, frames, device, reps, card):
+    out = {}
+    for label, srv in servers.items():
+        per_bucket = {}
+        for b in buckets:
+            x = frames[:b].to(device)
+            for _ in range(3):
+                srv.infer(x)
+            sync(device)
+            lat = []
+            for _ in range(reps):
+                t0 = time.perf_counter()
+                srv.infer(x)
+                sync(device)
+                lat.append((time.perf_counter() - t0) * 1e3)
+            p50 = float(np.percentile(lat, 50))
+            # device time of one request (profiler, all GPU kernels of the
+            # request summed): the rest of p50 is the host
+            prof = profiler_device_ms(lambda: srv.infer(x), device, 5)
+            per_bucket[str(b)] = {
+                "p50_ms": p50, "p99_ms": float(np.percentile(lat, 99)),
+                "frames_per_s": b / (p50 / 1e3),
+                "device_ms": None if prof is None else prof["total_ms"],
+                "device_own_kernels_ms": None if prof is None else prof["kernels_ms"],
+                "device_busy_share": None if prof is None else prof["total_ms"] / p50}
+        out[label] = per_bucket
+    emit("timing", card=card, reps=reps, latency=out)
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--log", default=None,
+                    help="also append every phase line to this file (the "
+                         "kernels line is long)")
+    args = ap.parse_args(argv)
+    if args.log:
+        global LOG_PATH
+        LOG_PATH = args.log
+        os.makedirs(os.path.dirname(os.path.abspath(LOG_PATH)), exist_ok=True)
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device — this script measures the port "
+              "on a GPU and does not fall back", file=sys.stderr)
+        return 2
+    device, ref_device = torch.device("cuda", 0), torch.device("cpu")
+    cfg = cnn.ResNetConfig()
+    buckets, kernel_batch, reps, plain_reps = (1, 8, 32, 128), 32, 20, 3
+    t_start = time.time()
+
+    card = gpu_name_and_limit()
+    ver = subprocess.run([_build.find_nvcc(), "--version"], text=True,
+                         stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+    emit("env", python=sys.version.split()[0], torch=torch.__version__,
+         cuda=torch.version.cuda, nvcc=ver.stdout.strip().splitlines()[-2:],
+         card=card, device=torch.cuda.get_device_name(0))
+
+    _build.load()
+    emit("build", seconds=_build.build_seconds, library=os.path.relpath(
+        str(_build.library_path()), ROOT), flags=list(_build.NVCC_FLAGS))
+    worst, rep = phase_kernels(cfg, device, kernel_batch, reps, plain_reps)
+
+    # pruned once on the host, so both servers hold identical weights
+    host_model = pruned_model(cfg, 0, N_CU, ref_device)
+    models = {ref_device: host_model,
+              device: tuple(tree_map(lambda t: t.to(device), t) for t in host_model)}
+    sizes = request_sizes(buckets)
+    frames = torch.from_numpy(np.random.RandomState(1).rand(
+        sum(sizes), cfg.image_size, cfg.image_size, 3).astype(np.float32))
+    devices = (device, ref_device)
+    streamed = dict(quantized=True, folded=True, streamed=True,
+                    activation_dsb=True, dense_fallback=2.0, n_cu=N_CU)
+
+    # ---- the main path: every count set to 0 just before, read just after
+    kernels.reset_launch_counts()
+    srv_u, _ = serve_phase("serve_unpacked", cfg,
+                           cnn.ExecSpec(packed=False, **streamed), buckets,
+                           models, frames, devices, sizes=sizes,
+                           kernel_name="implicit_block_sparse_conv")
+    srv_p, _ = serve_phase("serve_packed", cfg,
+                           cnn.ExecSpec(packed=True, **streamed), buckets,
+                           models, frames, devices, sizes=sizes,
+                           kernel_name="implicit_block_sparse_conv")
+    serve_phase("serve_materializing", cfg,
+                cnn.ExecSpec(packed=True, quantized=True, folded=True,
+                             streamed=True, implicit=False,
+                             dense_fallback=2.0, n_cu=N_CU),
+                buckets, models, frames, devices, sizes=[sizes[3]],
+                kernel_name="block_sparse_matmul")
+    main_path = kernels.launch_counts()
+    for kname, n in main_path.items():
+        if n < 1:
+            raise AssertionError(f"the main path never launched {kname}")
+
+    phase_default_cli(device)
+    phase_ladder(cfg, cnn.ExecSpec(packed=True, **streamed), buckets, models,
+                 frames, devices)
+    phase_timing({"unpacked": srv_u, "packed": srv_p}, buckets, frames, device,
+                 reps, card)
+
+    emit("done", seconds=time.time() - t_start)
+    print(card, flush=True)
+    tag = {"block_sparse_matmul": "k1", "implicit_block_sparse_conv": "k2"}
+    print(json.dumps({"kernels": [
+        {"name": kname, **KERNEL_INFO[kname], "launches": main_path[kname],
+         "max_abs_err": worst[kname],
+         "ms": rep[f"{tag[kname]}_ms"], "call_ms": rep[f"{tag[kname]}_call_ms"],
+         "plain_ms": rep[f"{tag[kname]}_plain_ms"],
+         "bound_ms": rep[f"{tag[kname]}_bound_ms"],
+         "bound_by": rep[f"{tag[kname]}_bound_by"],
+         "bound_padded_ms": rep[f"{tag[kname]}_bound_padded_ms"],
+         "library_ms": rep["library_ms"],
+         "shape": {k: rep[k] for k in ("name", "packed", "mode", "batch", "H",
+                                       "stride", "k", "cin", "cout")}}
+        for kname in KERNEL_INFO]}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,25 @@
+"""Hand-written CUDA kernels (sources under ``repro_torch/csrc``), their
+Python wrappers, and a plain PyTorch version of each.
+
+Every wrapper keeps a launch count — a plain integer that grows by one
+where the wrapper launches its CUDA kernel and nowhere else — so a run
+can show that it really went through the kernels.
+"""
+from __future__ import annotations
+
+from typing import Dict
+
+
+def launch_counts() -> Dict[str, int]:
+    """{kernel name: CUDA launches since the last reset}."""
+    from . import block_sparse_matmul as bsm
+    from . import implicit_conv as ic
+    return {"block_sparse_matmul": bsm.launch_count(),
+            "implicit_block_sparse_conv": ic.launch_count()}
+
+
+def reset_launch_counts() -> None:
+    from . import block_sparse_matmul as bsm
+    from . import implicit_conv as ic
+    bsm.reset_launch_count()
+    ic.reset_launch_count()

@@ -1,0 +1,236 @@
+"""Block-sparse matmul — the Dynamic Sparsity Bypass as a GPU kernel.
+
+``out[i-blk, j-blk] = epilogue(Σ_{s<cnt[j]} x[i-blk, idx[j,s]-tile] @
+w[idx[j,s]-tile, j-blk])``: an ``(nNb, max_nnz)`` index table (from
+:mod:`repro_torch.sparse.block_mask`) lists the live K-tiles of each output
+column, so pruned tiles cost neither arithmetic nor loads.
+
+Operands are f32/bf16 (f32 accumulation) **or int8 codes** — the paper's
+Q3.4 × Q2.5 fixed point. int8 operands accumulate in **int32** (exact,
+bit-identical to the reference) and require a ``scale`` row.
+
+Optional fused epilogue at the flush, in dequant → bias → ReLU →
+requantize order: a per-column ``scale`` multiply (f32 ``(N,)`` row), a
+per-column ``bias`` add, ``relu``, and an optional per-column ``out_scale``
+row that requantizes the flushed value back to int8 Q-format codes
+(``round_sat(out * out_scale, 127)``, round-half-even). Fully-pruned
+columns still flush ``bias`` (then ReLU), matching the dense
+``conv(x, 0) + b`` semantics.
+
+Two implementations of the one function live here:
+
+- :func:`block_sparse_matmul` — the wrapper. For a CUDA tensor it launches
+  the hand-written kernel ``csrc/block_sparse_matmul.cu`` (or raises); for
+  a CPU tensor, and only then, it runs the plain version.
+- :func:`block_sparse_matmul_plain` — the same function in plain PyTorch:
+  same packed operands and tables, same epilogue order, a loop over live
+  tiles. It is the CPU path and the yardstick the kernel is held to on the
+  card; nothing on a CUDA serving path calls it.
+"""
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+
+from ..core.quant import round_sat
+from . import _build
+from .ref import int_matmul_exact
+
+# int8 symmetric code bound: requantizing epilogues clamp to ±127 (both
+# Q2.5 and Q3.4 share it — the sign bit plus 7 magnitude bits of an int8)
+INT8_MAX_CODE = 127.0
+
+# limits of the CUDA kernels' thread layout (16 x 16 threads, up to 8 rows
+# and 8 columns each)
+KERNEL_MAX_BM = 128
+KERNEL_MAX_BN = 128
+
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
+
+_launches = 0
+
+
+def launch_count() -> int:
+    """CUDA launches of this module's kernel since the last reset."""
+    return _launches
+
+
+def reset_launch_count() -> None:
+    global _launches
+    _launches = 0
+
+
+# --- shared epilogue contract (also consumed by kernels.implicit_conv) ----
+
+def quantized_contract(x, w, scale, out_scale=None):
+    """-> (acc_dtype, out_dtype) for the operand dtypes, validating the
+    int8-code contract: int8 × int8 accumulates exactly in int32 and
+    needs a dequant ``scale`` row to emit float output; an ``out_scale``
+    row requantizes the flush so the kernel emits int8 codes instead."""
+    if x.dtype == torch.int8:
+        if w.dtype != torch.int8:
+            raise TypeError("int8 x needs int8 w (codes × codes)")
+        if scale is None:
+            raise ValueError(
+                "int8 operands accumulate integer codes — pass the dequant "
+                "scale row so the flush epilogue can emit float output")
+        return torch.int32, (torch.int8 if out_scale is not None
+                             else torch.float32)
+    if out_scale is not None:
+        raise ValueError(
+            "the requantizing epilogue (out_scale) is part of the int8-code "
+            "contract — f32 operands flush f32")
+    if w.dtype != x.dtype:
+        raise TypeError(f"operand dtypes differ: {x.dtype} vs {w.dtype}")
+    return torch.float32, x.dtype
+
+
+def flush_epilogue(acc, scale, bias, relu, out_scale=None):
+    """dequant → bias → ReLU on the flushed accumulator, f32; with
+    ``out_scale`` the result is requantized to int8 codes
+    (``round_sat(out * out_scale, 127)``, round-half-even). Rows broadcast
+    over the accumulator's last axis."""
+    out = acc
+    if scale is not None:           # int8 path: dequant the int32 acc
+        out = out.to(torch.float32) * scale
+    if bias is not None:
+        out = out.to(torch.float32) + bias.to(torch.float32)
+    if relu:
+        out = torch.clamp(out, min=0.0)
+    if out_scale is not None:       # requantize: emit Q-format codes
+        out = round_sat(out * out_scale, INT8_MAX_CODE)
+    return out
+
+
+def epilogue_rows(n: int, device, **rows):
+    """Validate the optional ``(N,)`` epilogue rows and return them as
+    contiguous f32 tensors on ``device`` (``None`` stays ``None``)."""
+    out = []
+    for name, row in rows.items():
+        if row is not None:
+            if tuple(row.shape) != (n,):
+                raise ValueError(
+                    f"{name} must be ({n},), got {tuple(row.shape)}")
+            row = row.to(device=device, dtype=torch.float32).contiguous()
+        out.append(row)
+    return out
+
+
+def live_columns_by_tile(idx, cnt):
+    """{K-tile id: [output columns j that visit it]} from the dispatch
+    table, tiles in ascending order (host-side)."""
+    idx_h = idx.detach().cpu().numpy()
+    cnt_h = cnt.detach().cpu().numpy()
+    by_tile: dict = {}
+    for j in range(idx_h.shape[0]):
+        for s in range(int(cnt_h[j])):
+            by_tile.setdefault(int(idx_h[j, s]), []).append(j)
+    return dict(sorted(by_tile.items()))
+
+
+def _check_operands(x, w, idx, cnt, block, bm):
+    M, K = x.shape
+    Kw, N = w.shape
+    bk, bn = block
+    if not (Kw == K and K % bk == 0 and N % bn == 0 and M % bm == 0):
+        raise ValueError(
+            f"shapes must be tile-aligned: {tuple(x.shape)} @ "
+            f"{tuple(w.shape)}, block={block}, bm={bm}")
+    if not (idx.dim() == 2 and idx.shape[0] == N // bn
+            and tuple(cnt.shape) == (N // bn,)):
+        raise ValueError(
+            f"dispatch table off-grid: idx {tuple(idx.shape)}, cnt "
+            f"{tuple(cnt.shape)} for {N // bn} column tiles")
+    return M, K, N, bk, bn
+
+
+def block_sparse_matmul_plain(
+    x: torch.Tensor,            # (M, K) f32/bf16, or int8 codes
+    w: torch.Tensor,            # (K, N) same family as x
+    idx: torch.Tensor,          # (nNb, max_nnz) int32
+    cnt: torch.Tensor,          # (nNb,) int32
+    bias: Optional[torch.Tensor] = None,
+    scale: Optional[torch.Tensor] = None,
+    out_scale: Optional[torch.Tensor] = None,
+    *,
+    block: Tuple[int, int] = (128, 128),
+    bm: int = 128,
+    relu: bool = False,
+) -> torch.Tensor:
+    """The plain PyTorch version of :func:`block_sparse_matmul`: for every
+    live K-tile, one product of the tile's x columns with the weight tiles
+    of the output columns that visit it, accumulated in f32 (int32 for
+    codes) in ascending tile order, then the shared epilogue."""
+    M, K, N, bk, bn = _check_operands(x, w, idx, cnt, block, bm)
+    acc_dtype, out_dtype = quantized_contract(x, w, scale, out_scale)
+    scale, bias, out_scale = epilogue_rows(N, x.device, scale=scale, bias=bias,
+                                           out_scale=out_scale)
+    nNb = N // bn
+    acc = torch.zeros((M, nNb, bn), dtype=acc_dtype, device=x.device)
+    wt = w.reshape(K // bk, bk, nNb, bn)
+    for t, cols in live_columns_by_tile(idx, cnt).items():
+        xt = x[:, t * bk:(t + 1) * bk]
+        wc = wt[t][:, cols, :].reshape(bk, len(cols) * bn)
+        if acc_dtype == torch.int32:
+            prod = int_matmul_exact(xt, wc)
+        else:
+            prod = xt.to(torch.float32) @ wc.to(torch.float32)
+        acc[:, cols, :] += prod.reshape(M, len(cols), bn)
+    out = flush_epilogue(acc.reshape(M, N), scale, bias, relu, out_scale)
+    return out.to(out_dtype)
+
+
+def block_sparse_matmul(
+    x: torch.Tensor,            # (M, K) f32/bf16, or int8 codes
+    w: torch.Tensor,            # (K, N) same family as x
+    idx: torch.Tensor,          # (nNb, max_nnz) int32
+    cnt: torch.Tensor,          # (nNb,) int32
+    bias: Optional[torch.Tensor] = None,   # (N,) fused epilogue bias (f32 units)
+    scale: Optional[torch.Tensor] = None,  # (N,) fused dequant row (f32)
+    out_scale: Optional[torch.Tensor] = None,  # (N,) requantize row -> int8
+    *,
+    block: Tuple[int, int] = (128, 128),
+    bm: int = 128,
+    relu: bool = False,
+) -> torch.Tensor:
+    """-> (M, N). A CUDA ``x`` launches the CUDA kernel on the current
+    stream (no synchronize) or raises; a CPU ``x`` runs
+    :func:`block_sparse_matmul_plain`."""
+    if not x.is_cuda:
+        return block_sparse_matmul_plain(x, w, idx, cnt, bias, scale,
+                                         out_scale, block=block, bm=bm,
+                                         relu=relu)
+    global _launches
+    M, K, N, bk, bn = _check_operands(x, w, idx, cnt, block, bm)
+    _, out_dtype = quantized_contract(x, w, scale, out_scale)
+    if x.dtype not in DTYPE_CODES:
+        raise TypeError(f"block_sparse_matmul kernel takes f32/bf16/int8 "
+                        f"operands, got {x.dtype}")
+    if bm > KERNEL_MAX_BM or bn > KERNEL_MAX_BN:
+        raise ValueError(
+            f"block_sparse_matmul kernel takes bm <= {KERNEL_MAX_BM} and "
+            f"bn <= {KERNEL_MAX_BN}, got bm={bm}, block={block}")
+    dev = x.device
+    for name, t in (("w", w), ("idx", idx), ("cnt", cnt)):
+        if t.device != dev:
+            raise ValueError(f"{name} is on {t.device}, x on {dev}")
+    if idx.dtype != torch.int32 or cnt.dtype != torch.int32:
+        raise TypeError("idx and cnt must be int32")
+    x, w, idx, cnt = (t.contiguous() for t in (x, w, idx, cnt))
+    scale, bias, out_scale = epilogue_rows(N, dev, scale=scale, bias=bias,
+                                           out_scale=out_scale)
+    out = torch.empty((M, N), dtype=out_dtype, device=dev)
+    if M == 0:
+        return out
+    lib = _build.load()
+    ptr = lambda t: None if t is None else t.data_ptr()
+    with torch.cuda.device(dev):
+        err = lib.hapm_block_sparse_matmul(
+            ptr(x), ptr(w), ptr(idx), ptr(cnt), ptr(scale), ptr(bias),
+            ptr(out_scale), ptr(out), M, K, N, bm, bk, bn, idx.shape[1],
+            DTYPE_CODES[x.dtype], int(relu),
+            torch.cuda.current_stream(dev).cuda_stream)
+    _build.check_launch(err, "block_sparse_matmul")
+    _launches += 1
+    return out

@@ -1,0 +1,190 @@
+"""The CUDA kernels against their plain PyTorch versions **on a GPU**, at
+shapes the serving smoke run does not reach: every rows-per-thread instance
+(bm 8 ... 128), bf16 operands, column-segmented wide rows, windows that need
+more than 48 KB of shared memory, fully pruned tables, the wrapper's
+refusals. Marked ``gpu``: skipped (with a reason, decided inside a fixture)
+on a machine without a CUDA device, run on one with
+
+    PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu_kernels.py
+
+Bars as everywhere: int8 outputs and skip counters bit-equal, f32 <= 1e-4
+(summation order), bf16 one output ulp."""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch.core import groups as TG, quant as TQ
+from repro_torch.kernels import block_sparse_matmul as BSM, implicit_conv as IC
+from repro_torch.sparse import block_mask as TB, conv_plan as TP
+
+pytestmark = pytest.mark.gpu
+
+
+@pytest.fixture(scope="module")
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    return torch.device("cuda", 0)
+
+
+def _matmul_case(M, K, N, block, dtype, seed, dev, density=0.5):
+    rs = np.random.RandomState(seed)
+    bk, bn = block
+    tm = rs.rand(K // bk, N // bn) < density
+    tm[:, -1] = False
+    plan = TB.plan_from_tile_mask(tm, block)
+    if dtype == torch.int8:
+        x = torch.from_numpy(rs.randint(-127, 128, (M, K)).astype(np.int8))
+        w = torch.from_numpy(rs.randint(-127, 128, (K, N)).astype(np.int8))
+    else:
+        x = torch.from_numpy(rs.randn(M, K).astype(np.float32)).to(dtype)
+        w = torch.from_numpy((rs.randn(K, N) / np.sqrt(K)).astype(np.float32)).to(dtype)
+    rows = dict(bias=torch.from_numpy(rs.randn(N).astype(np.float32)),
+                scale=torch.from_numpy(((rs.rand(N) + 0.5) * 1e-3).astype(np.float32)),
+                out_scale=torch.full((N,), 16.0))
+    to = lambda t: t.to(dev)
+    return (to(x), to(w), to(torch.from_numpy(plan.idx)), to(torch.from_numpy(plan.cnt)),
+            {k: to(v) for k, v in rows.items()})
+
+
+def _check(got, want, tol):
+    assert got.dtype == want.dtype and got.shape == want.shape
+    if tol == 0:
+        assert torch.equal(got, want)
+    else:
+        err = float((got.double() - want.double()).abs().max())
+        assert err <= tol, err
+
+
+@pytest.mark.parametrize("bm", [8, 16, 24, 32, 64, 96, 128])
+@pytest.mark.parametrize("block", [(128, 128), (16, 128), (8, 128), (24, 64)])
+@pytest.mark.parametrize("mode", ["f32", "bf16", "int8", "int8_requant"])
+def test_block_sparse_matmul_kernel_vs_plain(dev, bm, block, mode):
+    dtype = {"f32": torch.float32, "bf16": torch.bfloat16}.get(mode, torch.int8)
+    x, w, idx, cnt, rows = _matmul_case(3 * bm, 4 * block[0], 3 * block[1], block, dtype,
+                                        bm + block[0], dev)
+    kw = dict(block=block, bm=bm, relu=True, bias=rows["bias"])
+    if dtype == torch.int8:
+        kw["scale"] = rows["scale"]
+    if mode == "int8_requant":
+        kw["out_scale"] = rows["out_scale"]
+    before = BSM.launch_count()
+    got = BSM.block_sparse_matmul(x, w, idx, cnt, **kw)
+    torch.cuda.synchronize()
+    assert BSM.launch_count() == before + 1
+    want = BSM.block_sparse_matmul_plain(x, w, idx, cnt, **kw)
+    _check(got, want, {"f32": 1e-4, "bf16": 3.2e-2}.get(mode, 0))
+
+
+def test_block_sparse_matmul_all_columns_pruned(dev):
+    x, w, idx, cnt, rows = _matmul_case(64, 64, 256, (16, 128), torch.int8, 1, dev)
+    cnt = torch.zeros_like(cnt)
+    got = BSM.block_sparse_matmul(x, w, idx, cnt, rows["bias"], rows["scale"],
+                                  block=(16, 128), bm=64, relu=True)
+    assert torch.equal(got, torch.clamp(rows["bias"], min=0).expand(64, 256))
+
+
+def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
+    x, w, idx, cnt, rows = _matmul_case(256, 64, 512, (16, 256), torch.float32, 2, dev)
+    with pytest.raises(ValueError, match="bn <= 128"):
+        BSM.block_sparse_matmul(x, w, idx, cnt, block=(16, 256), bm=128)
+    x, w, idx, cnt, rows = _matmul_case(64, 64, 256, (16, 128), torch.float32, 3, dev)
+    with pytest.raises(ValueError, match="is on cpu"):
+        BSM.block_sparse_matmul(x, w.cpu(), idx, cnt, block=(16, 128), bm=64)
+    with pytest.raises(TypeError, match="takes f32/bf16/int8"):
+        BSM.block_sparse_matmul(x.double(), w.double(), idx, cnt, block=(16, 128), bm=64)
+    with pytest.raises(TypeError, match="must be int32"):
+        BSM.block_sparse_matmul(x, w, idx.long(), cnt, block=(16, 128), bm=64)
+    mb = IC.choose_m_block(1, 128)
+    big = torch.zeros(1, 130, 130, 8, device=dev)
+    with pytest.raises(ValueError, match="does not fit a thread block"):
+        IC.implicit_block_sparse_conv(
+            big, torch.zeros(128, 128, device=dev),
+            torch.zeros(1, 1, dtype=torch.int32, device=dev),
+            torch.zeros(1, dtype=torch.int32, device=dev), kx=129, ky=3, stride=1,
+            mb=mb, block=(128, 128), cpk=8, slot=16)
+
+
+CONV_CASES = [  # (k, cin, cout, stride, h, w, batch, cap)
+    (3, 8, 16, 1, 12, 12, 2, 128),     # bm 128 -> 8 rows per thread
+    (3, 8, 16, 2, 12, 12, 2, 128),     # bm 40
+    (1, 8, 16, 2, 16, 16, 3, 128),     # 1x1 projection
+    (3, 5, 10, 1, 4, 4, 1, 128),       # bm 16 -> 1 row per thread
+    (3, 6, 12, 1, 5, 5, 2, 128),       # bm 32 -> 2 rows per thread
+    (3, 4, 8, 1, 3, 150, 1, 128),      # wide row: 2 column segments
+    (5, 40, 24, 1, 20, 20, 1, 128),    # 5x5: 32-row channel slots
+    (1, 16, 16, 4, 32, 64, 2, 128),    # stride 4: packed window 113 KB (> 48 KB)
+    (3, 8, 16, 1, 9, 9, 2, 16),        # pinned small cap: 1 row blocks
+]
+
+
+@pytest.mark.parametrize("case", CONV_CASES, ids=lambda c: "x".join(map(str, c)))
+@pytest.mark.parametrize("packed", [False, True])
+@pytest.mark.parametrize("mode", ["f32", "bf16", "int8", "streamed_dsb"])
+def test_implicit_conv_kernel_vs_plain(dev, case, packed, mode):
+    k, cin, cout, stride, h, w_, batch, cap = case
+    rs = np.random.RandomState(sum(case))
+    layout = TP.conv_gemm_layout(TG.fpga_conv_groups((k, k, cin, cout), 4), packed=packed)
+    gm = (rs.rand(layout.spec.num_groups) < 0.6).astype(np.float32)
+    gm.reshape(cin, -1)[:, -1] = 0
+    w = torch.from_numpy((rs.randn(k, k, cin, cout) * np.sqrt(2.0 / (k * k * cin))
+                          ).astype(np.float32)).to(dev)
+    x = np.maximum(rs.randn(batch, h, w_, cin), 0).astype(np.float32)
+    x[0, : h // 2] = 0.0
+    x = torch.from_numpy(x).to(dev)
+    wm = layout.spec.expand(gm).to(dev) * w
+    bias = layout.pack_bias(torch.from_numpy(rs.randn(cout).astype(np.float32)).to(dev))
+    scale = out_scale = None
+    if mode in ("f32", "bf16"):
+        dt = torch.float32 if mode == "f32" else torch.bfloat16
+        wp, xin = layout.pack_weight(wm).to(dt), x.to(dt)
+    else:
+        q = TQ.QuantSpec.calibrate(w)
+        wp, xin = layout.pack_weight(q.weight_codes(wm)), q.act_codes(x)
+        scale = layout.pack_bias(q.dequant_row(cout, dev))
+        if mode == "streamed_dsb":
+            out_scale = layout.pack_bias(torch.full((cout,), 16.0, device=dev))
+    from repro_torch.kernels.conv_lowering import conv_out_size
+    ho, wo = conv_out_size(h, k, stride, "SAME"), conv_out_size(w_, k, stride, "SAME")
+    mb = IC.choose_m_block(ho, wo, cap=cap)
+    geo = layout.implicit_geometry()
+    rows, cols = IC.window_shape(mb, k, k, stride)
+    assert IC.window_fits_card(rows, cols, geo["cpk"])
+    xp = IC.pad_input(xin, k, k, stride, "SAME", mb, layout.tiles[0] * geo["cpk"])
+    plan = layout.plan(gm)
+    idx, cnt = (torch.from_numpy(a).to(dev) for a in (plan.idx, plan.cnt))
+    dsb = mode == "streamed_dsb"
+    kw = dict(kx=k, ky=k, stride=stride, mb=mb, block=layout.block, cpk=geo["cpk"],
+              slot=geo["slot"], relu=True, activation_dsb=dsb, count_skips=dsb)
+    got = IC.implicit_block_sparse_conv(xp, wp.contiguous(), idx, cnt, bias, scale,
+                                        out_scale, **kw)
+    torch.cuda.synchronize()
+    want = IC.implicit_block_sparse_conv_plain(xp, wp, idx, cnt, bias, scale,
+                                               out_scale, **kw)
+    tol = {"f32": 1e-4, "bf16": 3.2e-2}.get(mode, 0)
+    if dsb:
+        assert torch.equal(got[1], want[1])
+        got, want = got[0], want[0]
+    _check(got, want, tol)
+
+
+@pytest.mark.parametrize("packed", [False, True])
+def test_bound_conv_gpu_equals_cpu(dev, packed):
+    """One layer through ``make_sparse_conv`` on both devices, streamed."""
+    rs = np.random.RandomState(11)
+    w = torch.from_numpy((rs.randn(3, 3, 16, 32) * 0.1).astype(np.float32))
+    b = torch.from_numpy((rs.randn(32) * 0.1).astype(np.float32))
+    x = torch.from_numpy(np.maximum(rs.randn(4, 16, 16, 16), 0).astype(np.float32))
+    layout = TP.conv_gemm_layout(TG.fpga_conv_groups((3, 3, 16, 32), 12), packed=packed)
+    gm = (rs.rand(layout.spec.num_groups) < 0.5).astype(np.float32)
+    outs = []
+    for d in (dev, torch.device("cpu")):
+        conv = TP.make_sparse_conv(layout, gm, weight=w.to(d), bias=b.to(d), relu=True,
+                                   quant=TQ.QuantSpec.calibrate(w), out_quant=TQ.QuantSpec(),
+                                   activation_dsb=True)
+        y, stats = conv.skip_counts(x.to(d), stride=2)
+        outs.append((y.cpu(), stats))
+    assert torch.equal(outs[0][0], outs[1][0]) and outs[0][1] == outs[1][1]
+    with pytest.raises(ValueError, match="bind and call on one device"):
+        conv(x.to(dev))

@@ -1,0 +1,75 @@
+"""The port stands alone: no module under ``src/repro_torch`` and not
+``chip_smoke.py`` imports ``jax`` or anything of the JAX package ``repro``,
+and nothing imports ``triton`` or builds a kernel at import time."""
+import ast
+import os
+import pathlib
+import sys
+
+import pytest
+
+ROOT = pathlib.Path(__file__).resolve().parent.parent
+FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+FORBIDDEN = {"jax", "jaxlib", "repro", "triton", "flax", "optax"}
+
+
+def _imported_roots(path: pathlib.Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for a in node.names:
+                yield a.name.split(".")[0], node.lineno
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            yield node.module.split(".")[0], node.lineno
+
+
+def test_port_has_its_modules():
+    names = {str(p.relative_to(ROOT / "src" / "repro_torch")) for p in FILES[:-1]}
+    for want in ("core/quant.py", "core/groups.py", "core/masks.py", "core/hapm.py",
+                 "sparse/block_mask.py", "sparse/conv_plan.py",
+                 "kernels/conv_lowering.py", "kernels/ref.py",
+                 "kernels/block_sparse_matmul.py", "kernels/implicit_conv.py",
+                 "kernels/ops.py", "models/cnn.py", "configs/resnet21_cifar.py",
+                 "launch/exec_cache.py", "launch/resilience.py",
+                 "launch/serve_cnn.py"):
+        assert want in names, want
+
+
+@pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_forbidden_imports(path):
+    bad = [(mod, line) for mod, line in _imported_roots(path) if mod in FORBIDDEN]
+    assert not bad, f"{path}: imports {bad}"
+
+
+def test_importing_the_port_needs_no_compiler():
+    """Importing every module, in a fresh interpreter, builds nothing, loads
+    no CUDA library and imports neither ``triton`` nor ``jax``."""
+    import subprocess
+
+    pytest.importorskip("torch")
+    mods = []
+    for p in FILES[:-1]:
+        rel = p.relative_to(ROOT / "src").with_suffix("")
+        mods.append(".".join(rel.parts).removesuffix(".__init__"))
+    code = (
+        "import importlib, sys\n"
+        f"for m in {mods!r}: importlib.import_module(m)\n"
+        "from repro_torch.kernels import _build\n"
+        "assert _build._lib is None and _build.build_seconds is None\n"
+        "bad = [m for m in ('triton', 'jax', 'repro') if m in sys.modules]\n"
+        "assert not bad, bad\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    done = subprocess.run([sys.executable, "-c", code], env=env, text=True,
+                          capture_output=True, timeout=300)
+    assert done.returncode == 0, done.stderr
+
+
+def test_kernel_sources_share_one_epilogue_header():
+    csrc = ROOT / "src" / "repro_torch" / "csrc"
+    cu = sorted(p.name for p in csrc.glob("*.cu"))
+    assert cu == ["block_sparse_matmul.cu", "implicit_conv.cu"]
+    for name in cu:
+        text = (csrc / name).read_text()
+        assert '#include "epilogue.cuh"' in text
+        assert "torch/extension.h" not in text
+    assert "flush_epilogue" in (csrc / "epilogue.cuh").read_text()
