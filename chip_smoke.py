@@ -15,7 +15,17 @@ Run ``python3 chip_smoke.py`` from the repository root. It
    materializing contract, the default command-line contract and every rung
    of the degradation ladder, checking logits against a CPU server that runs
    the plain versions, and proving by launch counts that the kernels ran,
-4. prints one JSON line per phase, then the card's name and power limit, a
+4. trains the same network (QAT, batch 128, synthetic CIFAR from a seed)
+   for a few SGD steps through ``ExecSpec(trainable=True)`` binds in both
+   tile layouts — forward through the implicit conv kernel, dX through the
+   matmul kernel on the transposed plan, dW through the weight-gradient
+   kernel — checking that the loss falls, that pruned groups' gradients and
+   weights stay exactly zero and (f32 network) that the gradients match
+   dense autograd in float64 leaf by leaf, and proving by launch counts
+   that the kernels ran; then runs the training command line
+   (``repro_torch.launch.train_cnn``) on a small set at its default bind
+   contract and reports which kernels it launched,
+5. prints one JSON line per phase, then the card's name and power limit, a
    ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device": {...}}``.
 
 Any failing phase raises: the exit code is non-zero and no ``ok`` line is
@@ -27,10 +37,13 @@ often: ``ms`` is the device time per launch with launches queued back to
 back, ``call_ms`` one call on an idle device. ``bound_ms`` counts what the
 convolution needs (real output rows and channels); ``bound_padded_ms`` also
 counts the padded lanes and rows the kernel's output array carries.
+``launches`` sums both main paths (serving and training), each counted
+from zero just before it is driven; ``launches_by_path`` splits them.
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 import statistics
@@ -50,18 +63,23 @@ from repro_torch.core import (HAPMConfig, apply_masks, hapm_element_masks,
                               hapm_epoch_update, hapm_init)
 from repro_torch.core.groups import fpga_conv_groups
 from repro_torch.core.masks import tree_map
+from repro_torch.core.masks import tree_flatten_with_path
 from repro_torch.core.quant import QuantSpec
+from repro_torch.data.synthetic import SyntheticCifar
 from repro_torch.kernels import _build
 from repro_torch.kernels import block_sparse_matmul as BSM
 from repro_torch.kernels import implicit_conv as IC
 from repro_torch.kernels.conv_lowering import (conv_out_size, im2col_patches,
                                                pad_nhwc, same_pads)
-from repro_torch.kernels.ops import _pad_rows
-from repro_torch.launch import serve_cnn
+from repro_torch.kernels.ops import _pad_rows, make_block_sparse_grad_weight
+from repro_torch.launch import serve_cnn, train_cnn
 from repro_torch.launch.serve_cnn import CnnServer
 from repro_torch.models import cnn
 from repro_torch.sparse.conv_plan import (adaptive_bm, conv_gemm_layout,
                                           plan_from_tile_mask)
+from repro_torch.train import cnn_training
+from repro_torch.train.loop import value_and_grad
+from repro_torch.train.optimizer import sgd
 
 # published peaks of one H100 SXM (dense): memory rate, int8 tensor rate,
 # f32 rate outside the tensor cores
@@ -77,12 +95,24 @@ KERNEL_INFO = {
         "route": "cuda",
         "source": "src/repro_torch/csrc/implicit_conv.cu",
         "replaces": "src/repro/kernels/implicit_conv.py:347"},
+    "block_sparse_grad_weight": {
+        "route": "cuda",
+        "source": "src/repro_torch/csrc/block_sparse_grad_weight.cu",
+        "replaces": "src/repro/kernels/block_sparse_matmul.py:257"},
 }
+SERVE_KERNELS = ("block_sparse_matmul", "implicit_block_sparse_conv")
 
 F32_TOL = 1e-4          # f32 kernels vs plain: summation order differs
 LOGIT_TOL = 1e-5        # int8 contracts: convs exact, only the head's mean+matmul differs
+GRAD_W_REL_TOL = 1e-4   # K3 vs plain: x 1e-4 of max(|x|^T |g|) over the live tiles
+GRAD_REL_TOL = 1e-2     # f32 training grads through the kernels vs dense autograd in
+                        # f64, per leaf, x the leaf's largest f64 gradient; on an
+                        # H100 the kernels read at most 5.4e-3 (a BN bias) and the
+                        # dense f32 library run 3.8e-3 at batch 128
 N_CU = 12
 SPARSITY = 0.5
+TRAIN_BATCH = 128
+TRAIN_LR = 0.05
 
 
 LOG_PATH = None         # --log: every phase line is also appended here
@@ -197,14 +227,16 @@ def numpy_model(cfg: cnn.ResNetConfig, seed: int):
     return params, state
 
 
-def pruned_model(cfg, seed, n_cu, device):
+def hapm_model(cfg, seed, n_cu, device):
     """The seeded model on ``device`` with HAPM group sparsity 0.5 applied
-    (one epoch, as ``serve_cnn.main`` prunes)."""
+    (one epoch, as ``serve_cnn.main`` prunes): (pruned params, BN state,
+    element masks on ``device``, group specs, HAPM state)."""
     params, state = cnn.params_from_numpy(*numpy_model(cfg, seed), device=device)
     specs = cnn.conv_group_specs(params, n_cu)
     hcfg = HAPMConfig(SPARSITY, 1)
     st = hapm_epoch_update(hapm_init(specs, hcfg), specs, params, hcfg)
-    return apply_masks(params, hapm_element_masks(specs, st)), state
+    masks = tree_map(lambda m: m.to(device), hapm_element_masks(specs, st))
+    return apply_masks(params, masks), state, masks, specs, st
 
 
 # ---------------------------------------------------------------------------
@@ -361,14 +393,20 @@ def compare(name: str, got, want, case) -> float:
     return err
 
 
-OWN_KERNELS = ("implicit_conv_kernel", "block_sparse_matmul_kernel")
+# device-side kernel names of this repo's CUDA kernels, by the kernel they
+# belong to
+OWN_KERNELS = {"implicit_block_sparse_conv": ("implicit_conv_kernel",),
+               "block_sparse_matmul": ("block_sparse_matmul_kernel",),
+               "block_sparse_grad_weight": ("grad_weight_partial_kernel",
+                                            "grad_weight_reduce_kernel")}
 
 
 def profiler_device_ms(fn, device, reps: int):
     """Device time per ``fn()`` call from the profiler, as a cross-check of
     ``device_ms`` and as the split of a request: ``{"total_ms": all GPU
     kernels and copies that ``reps`` calls put on the device, per call,
-    "kernels_ms": the share of this repo's own CUDA kernels}``. Only
+    "kernels_ms": the share of this repo's own CUDA kernels, "by_kernel":
+    that share per kernel}``. Only
     device-side events are summed (an operator's host-side event repeats
     its kernels' time). ``None`` where the profiler cannot trace the device
     or records no device time. (``fn`` has already run once,
@@ -385,22 +423,26 @@ def profiler_device_ms(fn, device, reps: int):
     except RuntimeError as e:       # no device tracing here: an auxiliary
         print(f"chip_smoke: profiler unavailable ({e})", file=sys.stderr)
         return None                 # figure is missing, nothing is wrong
-    total_us = own_us = 0.0
+    total_us = 0.0
+    by_kernel = {k: 0.0 for k in OWN_KERNELS}
     for e in prof.key_averages():
         if e.device_type != DeviceType.CUDA:
             continue
         t = float(getattr(e, "self_device_time_total", 0.0))
         total_us += t
-        if any(name in e.key for name in OWN_KERNELS):
-            own_us += t
+        for kname, names in OWN_KERNELS.items():
+            if any(name in e.key for name in names):
+                by_kernel[kname] += t
     if total_us <= 0:
         return None
-    return {"total_ms": total_us / reps / 1e3, "kernels_ms": own_us / reps / 1e3}
+    return {"total_ms": total_us / reps / 1e3,
+            "kernels_ms": sum(by_kernel.values()) / reps / 1e3,
+            "by_kernel": {k: v / reps / 1e3 for k, v in by_kernel.items()}}
 
 
 def library_ms(case, device, reps) -> float:
-    """``F.conv2d`` (f32, TF32 off) on the same layer and batch — a
-    yardstick only; the port's bound path never calls it."""
+    """``F.conv2d`` through cuDNN (f32, TF32 off) on the same layer and
+    batch — a yardstick only; the port's bound path never calls it."""
     k, stride = case["k"], case["stride"]
     x, w = case["x"], case["w"]
     xn = pad_nhwc(x, same_pads(x.shape[1], k, stride),
@@ -408,7 +450,8 @@ def library_ms(case, device, reps) -> float:
     wn = w.permute(3, 2, 0, 1).contiguous()
 
     fn = lambda: F.conv2d(xn, wn, stride=stride)
-    with torch.backends.cudnn.flags(allow_tf32=False):
+    # cuDNN on, TF32 off (flags() turns cuDNN off unless it is asked for)
+    with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
         if case.get("profile"):
             prof = profiler_device_ms(fn, device, reps)
             case["library_profiler_ms"] = None if prof is None else prof["total_ms"]
@@ -610,6 +653,367 @@ def phase_timing(servers, buckets, frames, device, reps, card):
     emit("timing", card=card, reps=reps, latency=out)
 
 
+# ---------------------------------------------------------------------------
+# phase: the weight-gradient kernel against its plain version
+# ---------------------------------------------------------------------------
+
+def pack_output_grad(layout, dy):
+    """``dy`` (B, ho, wo, cout) onto the packed N lanes: the transpose of
+    ``layout.unpack_output``, as the trainable conv's backward forms it."""
+    B, ho, wo = dy.shape[:3]
+    with torch.enable_grad():
+        o2 = torch.zeros((B * ho * wo, layout.n_packed), device=dy.device,
+                         requires_grad=True)
+        g2d, = torch.autograd.grad(layout.unpack_output(o2, (B, ho, wo)), o2, dy)
+    return g2d
+
+
+def make_grad_case(geom, packed: bool, batch: int, n_cu: int, device,
+                   rs: np.random.RandomState):
+    """Operands of K3 for one conv layer at training batch ``batch``, as the
+    trainable conv's backward hands them over: the packed patch matrix and
+    the packed output gradient (rows padded to bm), the live tiles of a
+    random half-pruned group mask."""
+    name, H, stride, k, cin, cout = geom
+    spec = fpga_conv_groups((k, k, cin, cout), n_cu)
+    layout = conv_gemm_layout(spec, packed=packed)
+    gm = (rs.rand(cin, spec.n_fblocks) > SPARSITY).astype(np.float32)
+    gm[0, 0] = 1.0                        # at least one live tile
+    tm = layout.tile_mask(gm.reshape(-1))
+    live = np.argwhere(tm)
+    ho = conv_out_size(H, k, stride, "SAME")
+    x = torch.relu(torch.from_numpy(rs.randn(batch, H, H, cin).astype(np.float32)
+                                    ).to(device))
+    dy = torch.from_numpy(rs.randn(batch, ho, ho, cout).astype(np.float32)).to(device)
+    M = batch * ho * ho
+    bm = adaptive_bm(M)
+    p2d, _ = _pad_rows(layout.pack_patches(im2col_patches(x, k, k, stride, "SAME")), bm)
+    g2d, _ = _pad_rows(pack_output_grad(layout, dy), bm)
+    bk, bn = layout.block
+    L = len(live)
+    # max over live tiles of |x|^T |g|: the size of the sums compared
+    absprod = (p2d.abs().T @ g2d.abs()).reshape(tm.shape[0], bk, tm.shape[1], bn)
+    scale = max(float(absprod[kt, :, nt, :].max()) for kt, nt in live)
+    # the bound counts what the weight gradient needs: the M real rows, the
+    # patch columns (k*k taps of each input channel with a live group) and
+    # gradient columns (the real filters of each f-block with a live group)
+    # read once, 2*M multiply-adds per live weight element, each live
+    # element written once. The padded figure charges what the kernel
+    # touches: every row padded to bm, whole (bk, bn) tiles.
+    live_elems, _ = layout.mac_accounting(gm.reshape(-1))
+    fb_filters = np.minimum(n_cu, cout - n_cu * np.arange(spec.n_fblocks))
+    x_cols = k * k * int(gm.any(axis=1).sum())
+    g_cols = int(fb_filters[gm.any(axis=0)].sum())
+    t_b = 4 * (M * (x_cols + g_cols) + live_elems) / PEAK_BYTES_S
+    t_o = 2 * M * live_elems / PEAK_OPS_S["f32"]
+    n_k, n_n = len(set(live[:, 0].tolist())), len(set(live[:, 1].tolist()))
+    t_b_pad = 4 * (p2d.shape[0] * (bk * n_k + bn * n_n) + L * bk * bn) / PEAK_BYTES_S
+    t_o_pad = 2 * p2d.shape[0] * bk * bn * L / PEAK_OPS_S["f32"]
+    return {"name": name, "packed": packed, "batch": batch, "H": H, "stride": stride,
+            "k": k, "cin": cin, "cout": cout, "M": M, "block": (bk, bn), "bm": bm,
+            "tile_mask": tm, "live_tiles": L, "x": p2d.contiguous(), "g": g2d.contiguous(),
+            "kk": torch.from_numpy(live[:, 0].astype(np.int32)).to(device),
+            "nn": torch.from_numpy(live[:, 1].astype(np.int32)).to(device),
+            "scale": scale, "live_elems": live_elems, "bound_ms": max(t_b, t_o) * 1e3,
+            "bound_by": "bytes" if t_b >= t_o else "operations",
+            "bound_padded_ms": max(t_b_pad, t_o_pad) * 1e3}
+
+
+def phase_kernels_grad_weight(cfg, device, batch: int, reps: int, plain_reps: int):
+    """K3 at every distinct layer geometry in both layouts at training batch
+    ``batch``: within GRAD_W_REL_TOL x max(|x|^T |g|) of the plain version,
+    two launches bit-identical, dead tiles exactly zero after the scatter.
+    Returns (worst relative error, the row of the representative shape)."""
+    rs = np.random.RandomState(11)
+    rows, rep, worst = [], {}, 0.0
+    prev_tf32 = torch.backends.cuda.matmul.allow_tf32
+    for geom in layer_geometries(cfg):
+        for packed in (False, True):
+            c = make_grad_case(geom, packed, batch, N_CU, device, rs)
+            kw = dict(block=c["block"], bm=c["bm"])
+            run = lambda fn: fn(c["x"], c["g"], c["kk"], c["nn"], **kw)
+            got = run(BSM.block_sparse_grad_weight)
+            again = run(BSM.block_sparse_grad_weight)
+            sync(device)
+            want = run(BSM.block_sparse_grad_weight_plain)
+            label = f"block_sparse_grad_weight {c['name']} packed={packed}"
+            if not torch.equal(got, again):
+                raise AssertionError(f"{label}: two launches differ")
+            if not bool(torch.isfinite(got).all()):
+                raise AssertionError(f"{label}: non-finite output")
+            err = float((got.double() - want.double()).abs().max())
+            if err > GRAD_W_REL_TOL * c["scale"]:
+                raise AssertionError(f"{label}: max abs err {err} > "
+                                     f"{GRAD_W_REL_TOL} x {c['scale']}")
+            worst = max(worst, err)
+            bk, bn = c["block"]
+            dw = make_block_sparse_grad_weight(c["tile_mask"], c["block"], bm=c["bm"])(
+                c["x"], c["g"])
+            dead = torch.from_numpy(~np.repeat(np.repeat(c["tile_mask"], bk, 0), bn, 1)
+                                    ).to(device)
+            if not bool((dw[dead] == 0).all()):
+                raise AssertionError(f"{label}: a dead tile is not exactly zero")
+            row = {k: c[k] for k in ("name", "packed", "batch", "H", "stride", "k",
+                                     "cin", "cout", "M", "bm", "live_tiles",
+                                     "live_elems", "bound_ms", "bound_by",
+                                     "bound_padded_ms")}
+            row["block"] = list(c["block"])
+            row["split"] = list(BSM.grad_weight_split(
+                c["x"].shape[0], c["live_tiles"],
+                torch.cuda.get_device_properties(device).multi_processor_count))
+            row["max_abs_err"] = err
+            row["tol"] = GRAD_W_REL_TOL * c["scale"]
+            row["ms"] = device_ms(lambda: run(BSM.block_sparse_grad_weight), device, reps)
+            row["call_ms"] = time_ms(lambda: run(BSM.block_sparse_grad_weight), device, reps)
+            row["plain_ms"] = time_ms(lambda: run(BSM.block_sparse_grad_weight_plain),
+                                      device, plain_reps, warmup=1)
+            # the dense product x^T g, f32 with TF32 off: a yardstick only
+            torch.backends.cuda.matmul.allow_tf32 = False
+            try:
+                xt, g = c["x"].T, c["g"]
+                row["library_ms"] = device_ms(lambda: torch.matmul(xt, g), device, reps)
+            finally:
+                torch.backends.cuda.matmul.allow_tf32 = prev_tf32
+            rows.append(row)
+            # representative shape, as for K1 and K2: s0b0/conv1, one group
+            # per tile
+            if geom[1:] == (cfg.image_size, 1, 3, cfg.widths[0], cfg.widths[0]) \
+                    and not packed:
+                prof = profiler_device_ms(lambda: run(BSM.block_sparse_grad_weight),
+                                          device, reps)
+                row["profiler_ms"] = None if prof is None else prof["total_ms"]
+                rep = row
+    emit("kernels_grad_weight", batch=batch, rel_tol=GRAD_W_REL_TOL, reps=reps,
+         plain_reps=plain_reps, cases=rows)
+    return worst, rep
+
+
+# ---------------------------------------------------------------------------
+# phases: training through the kernels
+# ---------------------------------------------------------------------------
+
+def train_batch(cfg, seed, device, batch):
+    """One fixed batch of the synthetic CIFAR set, made from a seed."""
+    ds = SyntheticCifar(num_train=batch, num_test=8, seed=seed,
+                        image_size=cfg.image_size)
+    return {"x": torch.from_numpy(ds.train_x).to(device),
+            "y": torch.from_numpy(ds.train_y).to(device)}
+
+
+def bind_trainable(model, cfg, device, **spec_kw):
+    params, _, _, specs, st = model
+    return cnn.bind_execution(params, cfg, spec=cnn.ExecSpec(trainable=True, **spec_kw),
+                              specs=specs, group_masks=st.group_masks, device=device)
+
+
+def masked_grads(model, cfg, batch, exec_, through_mask=False):
+    """(loss, grads) of the masked loss: with respect to the masked params,
+    as the train step takes them, or (``through_mask``) with respect to the
+    params through the mask multiply, which zeroes pruned positions on any
+    conv path — the form a dense reference is compared in."""
+    params, state, masks = model[:3]
+    if through_mask:
+        fn = lambda p: cnn_training._loss_fn(apply_masks(p, masks), state, batch, cfg,
+                                             exec_)
+        (loss, _), grads = value_and_grad(fn, params)
+    else:
+        (loss, _), grads = value_and_grad(cnn_training._loss_fn,
+                                          apply_masks(params, masks), state, batch, cfg,
+                                          exec_)
+    return float(loss), grads
+
+
+def check_pruned_zero(label, tree, masks):
+    leaves = dict(tree_flatten_with_path(tree))
+    for path, m in tree_flatten_with_path(masks):
+        if float(torch.max(torch.abs(leaves[path] * (1 - m)))) != 0.0:
+            raise AssertionError(f"{label}: {'/'.join(path)} is not exactly zero "
+                                 "at pruned positions")
+
+
+def phase_train(name, cfg, packed: bool, model, batch, device, warmup=3, steps=10):
+    """SGD steps (lr 0.05, momentum 0.9, weight decay 1e-4, re-mask after
+    the update) on one fixed batch through a trainable bind of every conv
+    (``dense_fallback=2.0``). Checks the loss falls, the gradients are
+    finite and exactly zero at pruned positions, pruned weights stay zero,
+    and each kernel launched (K3 exactly once per step per bound conv with
+    a live tile). Returns the phase's numbers."""
+    params, state, masks = model[:3]
+    exec_ = bind_trainable(model, cfg, device, packed=packed, n_cu=N_CU,
+                           dense_fallback=2.0)
+    bound = [k for k, v in exec_.table.items() if v is not None]
+    live_convs = sum(1 for k in bound if int(exec_.plans[k].cnt.sum()) > 0)
+    if len(bound) != len(exec_.table):
+        raise AssertionError(f"{name}: {len(exec_.table) - len(bound)} layers "
+                             "took the dense route")
+    step = cnn_training.make_sparse_train_step(cfg, exec_)
+    st = {"p": params, "s": state, "o": sgd(momentum=0.9, weight_decay=1e-4)[0](params)}
+    losses, lat = [], []
+
+    def one_step():
+        st["p"], st["s"], st["o"], loss = step(st["p"], st["s"], st["o"], masks, batch,
+                                               TRAIN_LR)
+        return loss
+
+    before = kernels.launch_counts()
+    for i in range(warmup + steps):
+        t0 = time.perf_counter()
+        loss = one_step()
+        sync(device)
+        if i >= warmup:
+            lat.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(loss))
+    after = kernels.launch_counts()
+    launched = {k: after[k] - before[k] for k in after}
+    n_steps = warmup + steps
+    if launched["block_sparse_grad_weight"] != n_steps * live_convs:
+        raise AssertionError(f"{name}: block_sparse_grad_weight launched "
+                             f"{launched['block_sparse_grad_weight']} times, expected "
+                             f"{n_steps} steps x {live_convs} live convs")
+    for kname in KERNEL_INFO:
+        if launched[kname] < 1:
+            raise AssertionError(f"{name}: {kname} was not launched")
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"{name}: loss did not fall: {losses}")
+    check_pruned_zero(f"{name} weights", st["p"], masks)
+    loss, grads = masked_grads((st["p"], st["s"], masks), cfg, batch, exec_)
+    if not all(bool(torch.isfinite(g).all()) for _, g in tree_flatten_with_path(grads)):
+        raise AssertionError(f"{name}: non-finite gradients")
+    check_pruned_zero(f"{name} gradients", grads, masks)
+    prof = profiler_device_ms(one_step, device, 3)
+    dev_ms = None if prof is None else prof["total_ms"]
+    out = {"layers": len(exec_.table), "layers_with_live_tiles": live_convs,
+           "steps": steps, "warmup": warmup, "batch": int(batch["x"].shape[0]),
+           "losses": losses,
+           "step_p50_ms": float(np.percentile(lat, 50)),
+           "step_p99_ms": float(np.percentile(lat, 99)),
+           "device_ms_per_step": dev_ms,
+           "kernel_ms_per_step": None if prof is None else prof["by_kernel"],
+           "kernel_share": None if prof is None else {
+               k: v / dev_ms for k, v in prof["by_kernel"].items()},
+           "device_busy_share": None if prof is None else dev_ms / float(np.percentile(lat, 50)),
+           "launches": launched, "expected_grad_weight_launches": n_steps * live_convs}
+    emit(name, spec=repr(exec_.spec), quantized_net=cfg.quantized, **out)
+    return out
+
+
+def phase_train_grad_parity(cfg_f32, model, batch, device):
+    """One step's gradients through trainable binds (both layouts) against
+    dense autograd (library convolution), both taken through
+    ``apply_masks``, on the f32 network at the training batch. The
+    reference is the dense run in float64. Each leaf is held on its own
+    scale: max |g - g64| / max |g64| over the leaf must stay within
+    GRAD_REL_TOL (a leaf whose float64 gradient is all zero must come out
+    exactly zero). The f32 dense run's reading stands beside the kernels'
+    for comparison; it sets no bar. Not an absolute bar: the conv0 weight
+    gradient, a sum over 131072 rows of positive pixels times a BN-centred
+    gradient, cancels, so any f32 summation order leaves an error of its
+    terms' scale, not of the result's. The f32 network: under QAT one
+    activation within an ulp of a Q3.4 rounding boundary can round the
+    other way when the sums are taken in another order, and moves the
+    gradients by far more than the bar."""
+    params, state, masks = model[:3]
+    flat = lambda tree: {"/".join(k): v for k, v in tree_flatten_with_path(tree)}
+    to64 = lambda t: t.to(torch.float64)
+    model64 = (tree_map(to64, params), tree_map(to64, state), masks)
+    batch64 = {"x": batch["x"].double(), "y": batch["y"]}
+    g64 = flat(masked_grads(model64, cfg_f32, batch64, None, True)[1])
+    scale = {k: float(v.abs().max()) for k, v in g64.items()}
+
+    def rel(g):
+        out = {}
+        for k, ref in g64.items():
+            e = float((g[k].double() - ref).abs().max())
+            out[k] = e / scale[k] if scale[k] > 0 else (0.0 if e == 0 else float("inf"))
+        return out
+
+    readings = {"dense_f32": rel(flat(masked_grads(model, cfg_f32, batch, None, True)[1]))}
+    for packed in (False, True):
+        exec_ = bind_trainable(model, cfg_f32, device, packed=packed, n_cu=N_CU,
+                               dense_fallback=2.0)
+        readings["packed" if packed else "unpacked"] = rel(
+            flat(masked_grads(model, cfg_f32, batch, exec_, True)[1]))
+    worst = {name: max(r.items(), key=lambda kv: kv[1]) for name, r in readings.items()}
+    emit("train_grad_parity", quantized=cfg_f32.quantized, batch=int(batch["x"].shape[0]),
+         rel_tol=GRAD_REL_TOL, worst_leaf=worst, leaf_max_abs_grad=scale,
+         rel_err_vs_f64=readings)
+    bad = {f"{name} {k}": v for name in ("unpacked", "packed")
+           for k, v in readings[name].items() if not v <= GRAD_REL_TOL}
+    if bad:
+        raise AssertionError(f"train_grad_parity: gradients through the kernels off "
+                             f"the float64 reference by more than {GRAD_REL_TOL} of "
+                             f"the leaf's largest gradient: {bad}")
+
+
+def phase_train_default(cfg, model, batch, device):
+    """One SGD step at the default trainable contract,
+    ``ExecSpec(trainable=True, n_cu=12)``: how many of the layers bind."""
+    exec_ = bind_trainable(model, cfg, device, n_cu=N_CU)
+    params, state, masks = model[:3]
+    step = cnn_training.make_sparse_train_step(cfg, exec_)
+    before = kernels.launch_counts()
+    _, _, _, loss = step(params, state, sgd(momentum=0.9, weight_decay=1e-4)[0](params),
+                         masks, batch, TRAIN_LR)
+    sync(device)
+    after = kernels.launch_counts()
+    if not np.isfinite(float(loss)):
+        raise AssertionError("train_default: non-finite loss")
+    bound = sum(v is not None for v in exec_.table.values())
+    emit("train_default", spec=repr(exec_.spec), layers=len(exec_.table),
+         layers_bound=bound, layers_dense=len(exec_.table) - bound, loss=float(loss),
+         launches={k: after[k] - before[k] for k in after})
+
+
+def phase_train_cli(device):
+    """The training entry point as a user runs it, on the GPU: fp32 -> int8
+    -> HAPM (``--sparse-training``, the default) on a small synthetic set,
+    then its own checks (executed-int8 vs QAT logits, gradients through a
+    trainable bind against dense autograd, pruned gradients exactly zero).
+    It binds at the default contract, so only the layers whose plan is
+    below ``dense_fallback`` train through the kernels; the launch counts
+    show which kernels ran."""
+    argv = ["--epochs", "1", "--train-size", "256"]
+    before = kernels.launch_counts()
+    t0 = time.time()
+    m = train_cnn.main(argv)
+    sync(device)
+    seconds = time.time() - t0
+    after = kernels.launch_counts()
+    if not all(np.isfinite(m.history)):
+        raise AssertionError(f"train_cli: non-finite epoch loss {m.history}")
+    emit("train_cli", argv=argv, seconds=seconds, history=m.history,
+         test_accuracy=m.test_accuracy, launches={k: after[k] - before[k] for k in after})
+
+
+def kernels_line(serve_path, train_path, worst, rep, rep_gw):
+    """The ``kernels`` list of the last-but-one line: every ported kernel at
+    its representative shape, with its launches on both main paths."""
+    tag = {"block_sparse_matmul": "k1", "implicit_block_sparse_conv": "k2"}
+    shape_keys = ("name", "packed", "batch", "H", "stride", "k", "cin", "cout")
+    lines = []
+    for kname in KERNEL_INFO:
+        by_path = {"serve": serve_path[kname], "train": train_path[kname]}
+        common = {"name": kname, **KERNEL_INFO[kname],
+                  "launches": sum(by_path.values()), "launches_by_path": by_path,
+                  "max_abs_err": worst[kname]}
+        if kname in tag:
+            t = tag[kname]
+            lines.append({**common, "ms": rep[f"{t}_ms"], "call_ms": rep[f"{t}_call_ms"],
+                          "plain_ms": rep[f"{t}_plain_ms"], "bound_ms": rep[f"{t}_bound_ms"],
+                          "bound_by": rep[f"{t}_bound_by"],
+                          "bound_padded_ms": rep[f"{t}_bound_padded_ms"],
+                          "library_ms": rep["library_ms"],
+                          "shape": {k: rep[k] for k in (*shape_keys, "mode")}})
+        else:
+            lines.append({**common, "ms": rep_gw["ms"], "call_ms": rep_gw["call_ms"],
+                          "plain_ms": rep_gw["plain_ms"], "bound_ms": rep_gw["bound_ms"],
+                          "bound_by": rep_gw["bound_by"],
+                          "bound_padded_ms": rep_gw["bound_padded_ms"],
+                          "library_ms": rep_gw["library_ms"],
+                          "shape": {k: rep_gw[k] for k in (*shape_keys, "M", "block")}})
+    return lines
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--log", default=None,
@@ -641,9 +1045,11 @@ def main(argv=None) -> int:
     emit("build", seconds=_build.build_seconds, library=os.path.relpath(
         str(_build.library_path()), ROOT), flags=list(_build.NVCC_FLAGS))
     worst, rep = phase_kernels(cfg, device, kernel_batch, reps, plain_reps)
+    worst["block_sparse_grad_weight"], rep_gw = phase_kernels_grad_weight(
+        cfg, device, TRAIN_BATCH, reps, plain_reps)
 
     # pruned once on the host, so both servers hold identical weights
-    host_model = pruned_model(cfg, 0, N_CU, ref_device)
+    host_model = hapm_model(cfg, 0, N_CU, ref_device)[:2]
     models = {ref_device: host_model,
               device: tuple(tree_map(lambda t: t.to(device), t) for t in host_model)}
     sizes = request_sizes(buckets)
@@ -653,7 +1059,7 @@ def main(argv=None) -> int:
     streamed = dict(quantized=True, folded=True, streamed=True,
                     activation_dsb=True, dense_fallback=2.0, n_cu=N_CU)
 
-    # ---- the main path: every count set to 0 just before, read just after
+    # ---- main path 1, serving: every count set to 0 just before, read just after
     kernels.reset_launch_counts()
     srv_u, _ = serve_phase("serve_unpacked", cfg,
                            cnn.ExecSpec(packed=False, **streamed), buckets,
@@ -669,10 +1075,10 @@ def main(argv=None) -> int:
                              dense_fallback=2.0, n_cu=N_CU),
                 buckets, models, frames, devices, sizes=[sizes[3]],
                 kernel_name="block_sparse_matmul")
-    main_path = kernels.launch_counts()
-    for kname, n in main_path.items():
-        if n < 1:
-            raise AssertionError(f"the main path never launched {kname}")
+    serve_path = kernels.launch_counts()
+    for kname in SERVE_KERNELS:
+        if serve_path[kname] < 1:
+            raise AssertionError(f"the serving path never launched {kname}")
 
     phase_default_cli(device)
     phase_ladder(cfg, cnn.ExecSpec(packed=True, **streamed), buckets, models,
@@ -680,21 +1086,30 @@ def main(argv=None) -> int:
     phase_timing({"unpacked": srv_u, "packed": srv_p}, buckets, frames, device,
                  reps, card)
 
+    # ---- main path 2, training: the QAT net through trainable binds
+    qat = dataclasses.replace(cfg, quantized=True)
+    train_model = hapm_model(cfg, 0, N_CU, device)
+    batch = train_batch(cfg, 0, device, TRAIN_BATCH)
+    kernels.reset_launch_counts()
+    train_u = phase_train("train_unpacked", qat, False, train_model, batch, device)
+    train_p = phase_train("train_packed", qat, True, train_model, batch, device)
+    train_path = kernels.launch_counts()
+    for kname in KERNEL_INFO:
+        if train_path[kname] < 1:
+            raise AssertionError(f"the training path never launched {kname}")
+
+    phase_train_grad_parity(dataclasses.replace(cfg, quantized=False), train_model,
+                            batch, device)
+    phase_train_default(qat, train_model, batch, device)
+    phase_train_cli(device)
+    emit("train_summary", card=card, batch=TRAIN_BATCH, **{
+        f"{label}_{k}": out[k] for label, out in (("unpacked", train_u), ("packed", train_p))
+        for k in ("step_p50_ms", "step_p99_ms", "device_ms_per_step", "kernel_share")})
+
     emit("done", seconds=time.time() - t_start)
     print(card, flush=True)
-    tag = {"block_sparse_matmul": "k1", "implicit_block_sparse_conv": "k2"}
-    print(json.dumps({"kernels": [
-        {"name": kname, **KERNEL_INFO[kname], "launches": main_path[kname],
-         "max_abs_err": worst[kname],
-         "ms": rep[f"{tag[kname]}_ms"], "call_ms": rep[f"{tag[kname]}_call_ms"],
-         "plain_ms": rep[f"{tag[kname]}_plain_ms"],
-         "bound_ms": rep[f"{tag[kname]}_bound_ms"],
-         "bound_by": rep[f"{tag[kname]}_bound_by"],
-         "bound_padded_ms": rep[f"{tag[kname]}_bound_padded_ms"],
-         "library_ms": rep["library_ms"],
-         "shape": {k: rep[k] for k in ("name", "packed", "mode", "batch", "H",
-                                       "stride", "k", "cin", "cout")}}
-        for kname in KERNEL_INFO]}), flush=True)
+    print(json.dumps({"kernels": kernels_line(serve_path, train_path, worst, rep, rep_gw)}),
+          flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

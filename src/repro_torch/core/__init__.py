@@ -1,4 +1,4 @@
-"""HAPM core: schedule-derived group pruning and fixed-point quantization."""
+"""HAPM core: schedule-derived group pruning, baselines, quantization."""
 from .groups import (
     GroupSpec,
     FpgaConvGroupSpec,
@@ -26,5 +26,6 @@ from .masks import (
     sparsity,
     count_params,
 )
+from .uniform import UniformPruneConfig, magnitude_masks, maybe_update, sparsity_at
 from .quant import (QFormat, Q2_5, Q3_4, QuantSpec, quantize, fake_quant,
                     round_sat, to_int, to_int8, from_int)

@@ -15,11 +15,13 @@ def launch_counts() -> Dict[str, int]:
     from . import block_sparse_matmul as bsm
     from . import implicit_conv as ic
     return {"block_sparse_matmul": bsm.launch_count(),
-            "implicit_block_sparse_conv": ic.launch_count()}
+            "implicit_block_sparse_conv": ic.launch_count(),
+            "block_sparse_grad_weight": bsm.grad_weight_launch_count()}
 
 
 def reset_launch_counts() -> None:
     from . import block_sparse_matmul as bsm
     from . import implicit_conv as ic
     bsm.reset_launch_count()
+    bsm.reset_grad_weight_launch_count()
     ic.reset_launch_count()

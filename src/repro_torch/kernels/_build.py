@@ -127,6 +127,8 @@ def load() -> ctypes.CDLL:
     lib.hapm_block_sparse_matmul.restype = I
     lib.hapm_implicit_block_sparse_conv.argtypes = [P] * 9 + [I] * 21 + [P]
     lib.hapm_implicit_block_sparse_conv.restype = I
+    lib.hapm_block_sparse_grad_weight.argtypes = [P] * 6 + [I] * 9 + [P]
+    lib.hapm_block_sparse_grad_weight.restype = I
     _lib = lib
     return lib
 

@@ -26,6 +26,11 @@ Two implementations of the one function live here:
   same packed operands and tables, same epilogue order, a loop over live
   tiles. It is the CPU path and the yardstick the kernel is held to on the
   card; nothing on a CUDA serving path calls it.
+
+Its backward twin, the live-tile weight gradient ``dW[l] = x[:, kk[l]-tile]ᵀ
+@ g[:, nn[l]-tile]``, lives here too, in the same two forms:
+:func:`block_sparse_grad_weight` (kernel ``csrc/block_sparse_grad_weight.cu``
+on a CUDA tensor) and :func:`block_sparse_grad_weight_plain`.
 """
 from __future__ import annotations
 
@@ -48,17 +53,38 @@ KERNEL_MAX_BN = 128
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 
+# the weight-gradient kernel splits each live tile's rows into chunks of a
+# multiple of its 32-row staging step, enough chunks for about
+# GRAD_W_BLOCKS_PER_SM blocks on each SM of the device it runs on, but
+# none shorter than GRAD_W_MIN_CHUNK rows
+GRAD_W_SLICE_M = 32
+GRAD_W_BLOCKS_PER_SM = 2
+GRAD_W_MIN_CHUNK = 1024
+
 _launches = 0
+_grad_w_launches = 0
 
 
 def launch_count() -> int:
-    """CUDA launches of this module's kernel since the last reset."""
+    """CUDA launches of :func:`block_sparse_matmul`'s kernel since the last
+    reset."""
     return _launches
 
 
 def reset_launch_count() -> None:
     global _launches
     _launches = 0
+
+
+def grad_weight_launch_count() -> int:
+    """CUDA launches of :func:`block_sparse_grad_weight`'s kernel since the
+    last reset."""
+    return _grad_w_launches
+
+
+def reset_grad_weight_launch_count() -> None:
+    global _grad_w_launches
+    _grad_w_launches = 0
 
 
 # --- shared epilogue contract (also consumed by kernels.implicit_conv) ----
@@ -233,4 +259,123 @@ def block_sparse_matmul(
             torch.cuda.current_stream(dev).cuda_stream)
     _build.check_launch(err, "block_sparse_matmul")
     _launches += 1
+    return out
+
+
+# --- the backward twin: live-tile weight gradient --------------------------
+
+def _check_grad_operands(x, g, kk, nn, block, bm):
+    M, K = x.shape
+    Mg, N = g.shape
+    bk, bn = block
+    if not (Mg == M and M % bm == 0 and K % bk == 0 and N % bn == 0):
+        raise ValueError(
+            f"shapes must be tile-aligned: {tuple(x.shape)}, {tuple(g.shape)}, "
+            f"block={block}, bm={bm}")
+    L = int(kk.shape[0])
+    if kk.dim() != 1 or tuple(nn.shape) != (L,):
+        raise ValueError(f"live-tile coordinates must be two (L,) vectors, got "
+                         f"kk {tuple(kk.shape)}, nn {tuple(nn.shape)}")
+    if L == 0:
+        raise ValueError("no live tiles — the caller short-circuits to zeros")
+    if g.dtype != x.dtype:
+        raise TypeError(f"operand dtypes differ: {x.dtype} vs {g.dtype}")
+    return M, K, N, bk, bn, L
+
+
+def grad_weight_split(M: int, L: int, n_sms: int) -> Tuple[int, int]:
+    """(S, chunk): the fixed split of the M rows the weight-gradient kernel
+    reduces over on a device with ``n_sms`` SMs — S chunks of ``chunk``
+    rows (a multiple of the kernel's 32-row step), the last one short. A
+    function of the shape and the device alone, so two launches on the same
+    inputs sum in the same order."""
+    target = GRAD_W_BLOCKS_PER_SM * n_sms
+    s = max(1, min(-(-target // L), -(-M // GRAD_W_MIN_CHUNK)))
+    chunk = -(-(-(-M // s)) // GRAD_W_SLICE_M) * GRAD_W_SLICE_M
+    return -(-M // chunk), chunk
+
+
+def block_sparse_grad_weight_plain(
+    x: torch.Tensor,            # (M, K) f32/bf16 packed patches
+    g: torch.Tensor,            # (M, N) f32/bf16 packed output gradient
+    kk: torch.Tensor,           # (L,) int32 live-tile K coordinates
+    nn: torch.Tensor,           # (L,) int32 live-tile N coordinates
+    *,
+    block: Tuple[int, int] = (128, 128),
+    bm: int = 128,
+) -> torch.Tensor:
+    """The plain PyTorch version of :func:`block_sparse_grad_weight`: per
+    distinct output tile column, one f32 product of the live tiles' x
+    columns with that column's g block."""
+    M, K, N, bk, bn, L = _check_grad_operands(x, g, kk, nn, block, bm)
+    xt = x.to(torch.float32).reshape(M, K // bk, bk)
+    gt = g.to(torch.float32).reshape(M, N // bn, bn)
+    out = torch.empty((L, bk, bn), dtype=torch.float32, device=x.device)
+    by_col: dict = {}
+    for l, (k, n) in enumerate(zip(kk.tolist(), nn.tolist())):
+        by_col.setdefault(int(n), []).append((l, int(k)))
+    for n, items in sorted(by_col.items()):
+        ls = [l for l, _ in items]
+        ks = [k for _, k in items]
+        xs = xt[:, ks, :].reshape(M, len(ks) * bk)
+        out[ls] = (xs.T @ gt[:, n, :]).reshape(len(ks), bk, bn)
+    return out
+
+
+def block_sparse_grad_weight(
+    x: torch.Tensor,            # (M, K) f32/bf16 packed patches
+    g: torch.Tensor,            # (M, N) f32/bf16 packed output gradient
+    kk: torch.Tensor,           # (L,) int32 live-tile K coordinates
+    nn: torch.Tensor,           # (L,) int32 live-tile N coordinates
+    *,
+    block: Tuple[int, int] = (128, 128),
+    bm: int = 128,
+) -> torch.Tensor:
+    """``dW = x^T @ g`` restricted to the live weight tiles — the backward
+    twin of :func:`block_sparse_matmul`. Returns the **compact** ``(L, bk,
+    bn)`` f32 stack of live dW tiles (``(kk, nn)`` in any order, f32
+    accumulation); the caller scatters it onto the full ``(K, N)`` grid,
+    so pruned tiles stay exactly zero. ``M`` must be a multiple of ``bm``
+    (the caller zero-pads rows); ``L == 0`` is refused — the caller
+    short-circuits to zeros.
+
+    A CUDA ``x`` launches the CUDA kernel on the current stream (no
+    synchronize) or raises; a CPU ``x`` runs
+    :func:`block_sparse_grad_weight_plain`. The kernel's sum over rows has
+    a fixed order (:func:`grad_weight_split`): two launches on the same
+    inputs give the same bits."""
+    if not x.is_cuda:
+        return block_sparse_grad_weight_plain(x, g, kk, nn, block=block, bm=bm)
+    global _grad_w_launches
+    M, K, N, bk, bn, L = _check_grad_operands(x, g, kk, nn, block, bm)
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"block_sparse_grad_weight kernel takes f32/bf16 "
+                        f"operands, got {x.dtype}")
+    if bk > KERNEL_MAX_BM or bn > KERNEL_MAX_BN:
+        raise ValueError(
+            f"block_sparse_grad_weight kernel takes bk <= {KERNEL_MAX_BM} and "
+            f"bn <= {KERNEL_MAX_BN}, got block={block}")
+    dev = x.device
+    for name, t in (("g", g), ("kk", kk), ("nn", nn)):
+        if t.device != dev:
+            raise ValueError(f"{name} is on {t.device}, x on {dev}")
+    if kk.dtype != torch.int32 or nn.dtype != torch.int32:
+        raise TypeError("kk and nn must be int32")
+    x, g, kk, nn = (t.contiguous() for t in (x, g, kk, nn))
+    out = torch.empty((L, bk, bn), dtype=torch.float32, device=dev)
+    if M == 0:
+        return out.zero_()
+    S, chunk = grad_weight_split(
+        M, L, torch.cuda.get_device_properties(dev).multi_processor_count)
+    ws = (torch.empty((S, L, bk, bn), dtype=torch.float32, device=dev)
+          if S > 1 else None)
+    lib = _build.load()
+    with torch.cuda.device(dev):
+        err = lib.hapm_block_sparse_grad_weight(
+            x.data_ptr(), g.data_ptr(), kk.data_ptr(), nn.data_ptr(),
+            None if ws is None else ws.data_ptr(), out.data_ptr(), M, K, N,
+            bk, bn, L, S, chunk, DTYPE_CODES[x.dtype],
+            torch.cuda.current_stream(dev).cuda_stream)
+    _build.check_launch(err, "block_sparse_grad_weight")
+    _grad_w_launches += 1
     return out

@@ -36,8 +36,9 @@ rung is non-finite the server raises instead of answering. A CUDA launch
 error is not a bind error: it propagates. Requests carry deadlines
 (``infer(deadline_s=...)``) and are shed — counted, never hung — when the
 deadline cannot be met; admission control sheds or downgrades oversized
-requests. :meth:`CnnServer.snapshot` / ``snapshot_dir`` wait for the
-checkpoint module of a later slice.
+requests. :meth:`CnnServer.snapshot` persists the mask/fingerprint state
+through :mod:`repro_torch.train.checkpoint` so a restarted server
+(``snapshot_dir=``) warm-starts without re-deriving HAPM masks.
 
 ``python -m repro_torch.launch.serve_cnn --smoke`` runs the server
 standalone (``--device cpu`` to run it without a GPU).
@@ -48,6 +49,7 @@ import argparse
 import dataclasses
 import logging
 import time
+import warnings
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -64,7 +66,8 @@ from .resilience import (DENSE_RUNG, DeadlineExceeded, FaultPlan,
 
 logger = logging.getLogger(__name__)
 
-
+SNAPSHOT_KIND = "cnn_server_snapshot"
+_MASK_PREFIX = "masks|"          # checkpoint._flatten path join of {"masks": ...}
 
 def _fresh_resilience_counters() -> Dict[str, int]:
     return {"bind_retries": 0, "bind_failures": 0, "downgrades": 0,
@@ -111,10 +114,6 @@ class CnnServer:
                  faults: Optional[FaultPlan] = None,
                  snapshot_dir: Optional[str] = None,
                  device=None):
-        if snapshot_dir is not None:
-            raise NotImplementedError(
-                "CnnServer(snapshot_dir=...) restores through the checkpoint "
-                "module — it is ported with the training slice")
         self.device = cnn.resolve_device(device)
         self.spec = cnn.ExecSpec() if spec is None else spec
         self.policy = ServePolicy() if policy is None else policy
@@ -131,10 +130,11 @@ class CnnServer:
         self.resilience = _fresh_resilience_counters()
         self.degrade_log: List[str] = []
         self.last_request_level = 0
-        self._install(params, state)
+        self._install(params, state, snapshot_dir=snapshot_dir)
 
     # -- model / fingerprint state ------------------------------------
-    def _install(self, params, state) -> None:
+    def _install(self, params, state, snapshot_dir: Optional[str] = None
+                 ) -> None:
         # tensors already on the serving device are kept as they are (so
         # update_masks can tell a no-op by identity); others are copied over
         to_dev = lambda t: t.to(self.device)
@@ -149,21 +149,27 @@ class CnnServer:
             derive = lambda: cnn.derive_group_masks(
                 params, self.spec.n_cu, quantized=self.spec.quantized)
         self.arch_fp = arch_fingerprint(self.cfg, params)
-        masks = derive()
-        fp = mask_fingerprint(masks)
-        if self.faults is not None:
-            # the fault hook models corruption *after* derivation (a
-            # flipped bit in the mask buffer / a torn update); the
-            # fingerprint cross-check is the real detection path
-            seen = self.faults.on_masks(masks)
-            if seen is not masks and mask_fingerprint(seen) != fp:
-                if self.policy.validate_masks:
-                    self.resilience["mask_repairs"] += 1
-                    logger.warning(
-                        "mask update failed fingerprint validation — "
-                        "repaired from the freshly-derived pattern")
-                else:
-                    masks, fp = seen, mask_fingerprint(seen)
+        masks = fp = None
+        if snapshot_dir is not None:
+            loaded = self._snapshot_masks(snapshot_dir)
+            if loaded is not None:
+                masks, fp = loaded
+        if masks is None:
+            masks = derive()
+            fp = mask_fingerprint(masks)
+            if self.faults is not None:
+                # the fault hook models corruption *after* derivation (a
+                # flipped bit in the mask buffer / a torn update); the
+                # fingerprint cross-check is the real detection path
+                seen = self.faults.on_masks(masks)
+                if seen is not masks and mask_fingerprint(seen) != fp:
+                    if self.policy.validate_masks:
+                        self.resilience["mask_repairs"] += 1
+                        logger.warning(
+                            "mask update failed fingerprint validation — "
+                            "repaired from the freshly-derived pattern")
+                    else:
+                        masks, fp = seen, mask_fingerprint(seen)
         self.group_masks = masks
         self.mask_fp = fp
         self._rung_masks: Dict[bool, tuple] = {}
@@ -225,11 +231,51 @@ class CnnServer:
 
     # -- snapshot / warm restore --------------------------------------
     def snapshot(self, ckpt_dir: str, step: int = 0) -> str:
-        """Persisting the bind-key state goes through the checkpoint
-        module, which this slice of the port does not carry."""
-        raise NotImplementedError(
-            "CnnServer.snapshot persists through the checkpoint module — "
-            "it is ported with the training slice")
+        """Persist the bind-key state (group masks + fingerprints)
+        through :mod:`repro_torch.train.checkpoint` (atomic, manifested;
+        the JAX package's file format). A restarted server passes the
+        directory as ``snapshot_dir`` and warms its exec cache without
+        re-deriving HAPM masks — the host-side ``group_scores`` sweep over
+        every conv layer. Returns the checkpoint path."""
+        from ..train import checkpoint as CKPT
+        tree = {"masks": {"/".join(k): np.asarray(v)
+                          for k, v in self.group_masks.items()}}
+        return CKPT.save(ckpt_dir, step, tree, extra_meta={
+            "kind": SNAPSHOT_KIND, "arch_fp": self.arch_fp,
+            "mask_fp": self.mask_fp, "spec": repr(self.spec)})
+
+    def _snapshot_masks(self, snapshot_dir: str) -> Optional[tuple]:
+        """Load (masks, fingerprint) from a :meth:`snapshot` directory,
+        or ``None`` (with a warning) when there is no usable snapshot —
+        missing, for a different arch/spec, or failing the fingerprint
+        integrity check (corruption is repaired by falling back to fresh
+        derivation, never served)."""
+        from ..train import checkpoint as CKPT
+        try:
+            flat, meta = CKPT.load_flat(snapshot_dir)
+        except FileNotFoundError:
+            warnings.warn(f"no server snapshot under {snapshot_dir!r} — "
+                          "deriving masks fresh")
+            return None
+        if (meta.get("kind") != SNAPSHOT_KIND
+                or meta.get("arch_fp") != self.arch_fp
+                or meta.get("spec") != repr(self.spec)):
+            warnings.warn(
+                f"snapshot under {snapshot_dir!r} does not match this "
+                "server (kind/arch/spec) — deriving masks fresh")
+            return None
+        masks = {tuple(k[len(_MASK_PREFIX):].split("/")):
+                 np.asarray(v, np.float32)
+                 for k, v in flat.items() if k.startswith(_MASK_PREFIX)}
+        fp = mask_fingerprint(masks)
+        if self.policy.validate_masks and fp != meta.get("mask_fp"):
+            warnings.warn(
+                f"snapshot under {snapshot_dir!r} failed its mask-"
+                "fingerprint integrity check (corrupt or stale) — "
+                "deriving masks fresh")
+            self.resilience["mask_repairs"] += 1
+            return None
+        return masks, fp
 
     # -- exec plumbing ------------------------------------------
     def _masks_for(self, rung: cnn.ExecSpec) -> tuple:

@@ -7,10 +7,12 @@ package's keys, conv weights in HWIO layout (kx, ky, cin, cout) matching
 ``core.groups.fpga_conv_groups``, activations NHWC — so every table, plan
 and byte count of the JAX package applies unchanged.
 
-This slice of the port carries **inference**: :func:`apply` with
-``train=False``, BN folding, the folded dataflows, and the bind of every
-conv layer onto the CUDA block-sparse kernels. Entry points that allocate
-take a ``device`` and default to the GPU: with no GPU and no explicit
+:func:`apply` runs inference (``train=False``) and training
+(``train=True``: batch-statistics BN, gradients through the block-sparse
+kernels under an ``ExecSpec(trainable=True)`` bind); BN folding and the
+folded dataflows serve; :func:`bind_execution` binds every conv layer onto
+the CUDA block-sparse kernels. Entry points that allocate take a
+``device`` and default to the GPU: with no GPU and no explicit
 ``device="cpu"`` they raise.
 """
 from __future__ import annotations
@@ -67,19 +69,6 @@ class PermanentBindError(BindError, ValueError):
     contract (non-tensor weights, incompatible quant spec, ...). Also a
     :class:`ValueError` so pre-taxonomy callers catching that keep
     working. The ladder skips retries and downgrades one rung."""
-
-
-@dataclasses.dataclass(frozen=True)
-class ResNetConfig:
-    stages: Tuple[int, ...] = (3, 3, 3)
-    widths: Tuple[int, ...] = (16, 32, 64)
-    num_classes: int = 10
-    in_channels: int = 3
-    image_size: int = 32
-    quantized: bool = False            # QAT with Q2.5 / Q3.4
-    bn_momentum: float = 0.9
-    bn_eps: float = 1e-5
-
 
 
 @dataclasses.dataclass(frozen=True)
@@ -187,14 +176,19 @@ def _conv(x, w, stride):
     """Dense NHWC/HWIO SAME convolution through the library — the dense
     rung and the dense-fallback layers. The input is padded explicitly
     (XLA's SAME split; ``conv2d(padding=...)`` is symmetric and differs at
-    stride 2) and TF32 is switched off for the call: a TF32 convolution
-    feeding a requantize flips codes."""
+    stride 2). On CUDA the call runs with cuDNN switched off: PyTorch's own
+    convolution is an im2col GEMM in full f32 (no TF32, which would flip
+    requantized codes, and no Winograd/FFT transform), so on fake-quant
+    operands its sums are exact, as the executed-int8 kernels' are. The
+    operands are copied to contiguous NCHW/OIHW first: the backward of
+    oneDNN's CPU convolution on the permuted views corrupts the heap
+    (torch 2.13.0+cpu, seen on a ResNet with a stride-2 stage)."""
     kx, ky = int(w.shape[0]), int(w.shape[1])
     xp = pad_nhwc(x, same_pads(x.shape[1], kx, stride),
                   same_pads(x.shape[2], ky, stride))
-    xn, wn = xp.permute(0, 3, 1, 2), w.permute(3, 2, 0, 1)
+    xn, wn = xp.permute(0, 3, 1, 2).contiguous(), w.permute(3, 2, 0, 1).contiguous()
     if x.is_cuda:
-        with torch.backends.cudnn.flags(allow_tf32=False):
+        with torch.backends.cudnn.flags(enabled=False):
             y = F.conv2d(xn, wn, stride=stride)
     else:
         y = F.conv2d(xn, wn, stride=stride)
@@ -210,9 +204,22 @@ def _inv_std(var, eps):
     return 1.0 / torch.sqrt(var + eps)
 
 
-def _bn(x, p, s, cfg: ResNetConfig):
-    return ((x - s["mean"]) * _inv_std(s["var"], cfg.bn_eps) * p["scale"]
-            + p["bias"])
+def _bn(x, p, s, train: bool, cfg: ResNetConfig):
+    """BatchNorm over NHWC -> (y, new running stats). ``train``: batch mean
+    and population variance, running stats moved by ``cfg.bn_momentum``
+    (outside autograd); otherwise the running stats, returned unchanged."""
+    if train:
+        mean = torch.mean(x, dim=(0, 1, 2))
+        var = torch.var(x, dim=(0, 1, 2), unbiased=False)
+        with torch.no_grad():
+            m = cfg.bn_momentum
+            new_s = {"mean": m * s["mean"] + (1 - m) * mean,
+                     "var": m * s["var"] + (1 - m) * var}
+    else:
+        mean, var = s["mean"], s["var"]
+        new_s = s
+    y = (x - mean) * _inv_std(var, cfg.bn_eps) * p["scale"] + p["bias"]
+    return y, new_s
 
 
 def apply(
@@ -224,7 +231,9 @@ def apply(
     *,
     sparse: Any = None,
 ) -> Tuple[torch.Tensor, PyTree]:
-    """Forward pass. ``x``: (B, H, W, C) in [0, 1]. Returns (logits, state).
+    """Forward pass. ``x``: (B, H, W, C) in [0, 1]. Returns (logits,
+    new_state): with ``train=False`` the BN state passed in, with
+    ``train=True`` a new tree of running statistics.
 
     Pruning masks are applied to *params* beforehand (``core.apply_masks``),
     keeping this function mask-agnostic.
@@ -241,48 +250,61 @@ def apply(
         ``params`` on the params' own device. Binds are memoized on the
         identity of ``params``.
 
-    Inference only in this slice of the port: ``train=True`` (batch-stat
-    BN and the differentiable sparse convs) arrives with the training
-    slice and raises :class:`NotImplementedError` here.
+    A *prepacked* exec (the default bind) is inference-only with respect
+    to the conv weights: they are bind-time constants, so gradients could
+    not reach ``params`` through sparse-bound layers — ``train=True`` with
+    such an exec raises. An ``ExecSpec(trainable=True)`` bind instead
+    passes each layer's weight to its bound conv per call, whose
+    ``autograd.Function`` runs the transposed-plan / live-tile backward
+    kernels: ``train=True`` is supported, gradients flow, pruned groups get
+    exactly zero gradient. Rebind after each HAPM epoch either way.
     """
-    if train:
-        raise NotImplementedError(
-            "apply(train=True) needs train-mode BatchNorm and the backward "
-            "kernels — they are ported with the training slice")
     sparse = _resolve_sparse(sparse, params, cfg.quantized)
+    if train and sparse is not None and not sparse.trainable:
+        raise ValueError(
+            "this sparse exec is inference-only: conv weights are prepacked "
+            "bind-time constants, so training gradients would silently not "
+            "reach params — bind with ExecSpec(trainable=True) to train "
+            "through the block-sparse kernels (rebind after each HAPM "
+            "epoch), or train dense")
 
     def conv(path, h, w, stride):
         if sparse is not None:
             fn = sparse.table.get(path)
             if fn is not None:
+                if sparse.trainable:
+                    return fn(h, w, stride=stride)   # per-call weight
                 return fn(h, stride=stride)   # weight prepacked at bind time
         return _conv(h, w, stride)
 
     # the accelerator ingests Q3.4 activations for every layer, the input
     # frame included — quantize it so the executed-int8 path can match the
     # QAT forward exactly on codes (images are 8-bit sources anyway)
+    new_state: dict = {}
     h = conv(("conv0", "w"), _maybe_qa(x, cfg), _maybe_qw(params["conv0"]["w"], cfg), 1)
-    h = _bn(h, params["bn0"], state["bn0"], cfg)
+    h, new_state["bn0"] = _bn(h, params["bn0"], state["bn0"], train, cfg)
     h = _maybe_qa(torch.relu(h), cfg)
     for si, n_blocks in enumerate(cfg.stages):
         for bi in range(n_blocks):
             name = f"s{si}b{bi}"
             blk, st = params[name], state[name]
             stride = 2 if (si > 0 and bi == 0) else 1
+            ns: dict = {}
             y = conv((name, "conv1", "w"), h, _maybe_qw(blk["conv1"]["w"], cfg), stride)
-            y = _bn(y, blk["bn1"], st["bn1"], cfg)
+            y, ns["bn1"] = _bn(y, blk["bn1"], st["bn1"], train, cfg)
             y = _maybe_qa(torch.relu(y), cfg)
             y = conv((name, "conv2", "w"), y, _maybe_qw(blk["conv2"]["w"], cfg), 1)
-            y = _bn(y, blk["bn2"], st["bn2"], cfg)
+            y, ns["bn2"] = _bn(y, blk["bn2"], st["bn2"], train, cfg)
             if "proj" in blk:
                 sc = conv((name, "proj", "w"), h, _maybe_qw(blk["proj"]["w"], cfg), stride)
-                sc = _bn(sc, blk["bnp"], st["bnp"], cfg)
+                sc, ns["bnp"] = _bn(sc, blk["bnp"], st["bnp"], train, cfg)
             else:
                 sc = h
             h = _maybe_qa(torch.relu(y + sc), cfg)
+            new_state[name] = ns
     pooled = torch.mean(h, dim=(1, 2))
     logits = pooled @ params["fc"]["w"] + params["fc"]["b"]
-    return logits, state
+    return logits, (new_state if train else state)
 
 
 # ---------------------------------------------------------------------------
@@ -329,8 +351,8 @@ class ExecSpec:
     density reaches ``dense_fallback`` stay on the dense
     library convolution.
 
-    ``trainable``: bound convs take the caller's (traced) weight per call
-    and carry a ``custom_vjp`` — :func:`apply` with ``train=True`` runs
+    ``trainable``: bound convs take the caller's weight per call and
+    carry an ``autograd.Function`` — :func:`apply` with ``train=True`` runs
     the block-sparse kernels forward *and* backward, gradients reach
     ``params``, pruned groups get exactly zero gradient. Incompatible with
     ``quantized``/``folded`` (both are inference contracts; QAT trains
@@ -441,7 +463,7 @@ class SparseConvExec:
                                      # int8 Q3.4 codes (apply_folded wire mode)
     activation_dsb: bool = False     # dual-sided: implicit kernel skips
                                      # all-zero int8 activation windows
-    trainable: bool = False          # convs take per-call weights, custom_vjp
+    trainable: bool = False          # convs take per-call weights, autograd.Function
     bound_weights: Any = None        # {path: source weight} — staleness check
     implicit: bool = False           # convs bound to the implicit-im2col kernel
     bm: Any = 128                    # M-blocking policy: int (fixed) or "auto"
@@ -829,10 +851,15 @@ def bind_execution(
     tables live and where the bound convs run — the GPU by default
     (raises without one); ``device="cpu"`` binds the plain PyTorch
     versions explicitly. Weights on another device are copied at bind
-    time. ``spec.trainable`` binds belong to the training slice and raise
-    :class:`NotImplementedError`.
+    time.
 
-    The exec is pinned to these exact weight tensors — ``apply`` rejects a
+    ``spec.trainable=True`` (plain trees only): nothing is prepacked — each
+    bound conv re-packs the weight ``apply`` hands it per call, so the exec
+    stays valid while an epoch's optimizer steps move the weights, and its
+    ``autograd.Function`` runs the backward kernels. Rebind when the group
+    masks change (a HAPM epoch).
+
+    A prepacked exec is pinned to these exact weight tensors — ``apply`` rejects a
     params tree whose conv leaves differ (rebind after updates, or serve
     through ``launch.exec_cache`` which re-keys on the sparsity
     fingerprint).
@@ -840,11 +867,6 @@ def bind_execution(
     from ..sparse.conv_plan import make_sparse_conv
 
     spec = ExecSpec() if spec is None else spec
-    if spec.trainable:
-        raise NotImplementedError(
-            "ExecSpec(trainable=True) binds need the backward kernels "
-            "(transposed-plan dX, block_sparse_grad_weight dW) — they are "
-            "ported with the training slice")
     dev = resolve_device(device) if bind_kernels else None
     if spec.folded:
         if quant_spec is not None:
@@ -895,6 +917,12 @@ def bind_execution(
             # two are identical: round(fake_quant(w)·2^5) == round(w·2^5))
             if not bind_kernels or plan.density >= spec.dense_fallback:
                 return None
+            if spec.trainable:
+                # no prepack: the conv re-packs the caller's weight every
+                # call, so mid-epoch updates are never stale
+                return make_sparse_conv(layout, gm, bm=spec.bm,
+                                        implicit=spec.implicit,
+                                        trainable=True, device=dev)
             return make_sparse_conv(layout, gm, bm=spec.bm,
                                     weight=leaf if spec.quantized else w,
                                     implicit=spec.implicit, quant=qspec,
@@ -910,7 +938,7 @@ def bind_execution(
                           streamed=spec.streamed,
                           activation_dsb=spec.activation_dsb,
                           trainable=spec.trainable,
-                          bound_weights=bound,
+                          bound_weights=None if spec.trainable else bound,
                           implicit=_resolve_exec_implicit(spec.implicit,
                                                           layouts),
                           bm=spec.bm, spec=spec)
@@ -948,6 +976,11 @@ def _resolve_sparse(sparse, params, quantized: bool = False) -> Optional[SparseC
                 "this SparseConvExec fuses the folded-BN bias/ReLU epilogue "
                 "(ExecSpec(folded=True)) — apply() would run BN on top of "
                 "it; consume it with apply_folded()")
+        if sparse.trainable:
+            # per-call weights: nothing is prepacked, so there is nothing
+            # to go stale and no code/float mismatch — under cfg.quantized
+            # the f32 kernels consume the caller's fake-quant view (QAT)
+            return sparse
         if sparse.quantized != quantized:
             raise ValueError(
                 f"SparseConvExec prepacked with quantized={sparse.quantized} "

@@ -550,9 +550,23 @@ def make_sparse_conv(layout: ConvGemmLayout, group_mask, *, bm="auto",
     ``(y, stats)`` where ``stats`` is ``{"skipped_steps", "live_steps"}``
     (``None`` on the materializing fallback).
 
-    ``trainable=True`` (the differentiable closure with the transposed-plan
-    dX and live-tile dW backward kernels) belongs to the training slice of
-    the port and raises :class:`NotImplementedError` here.
+    ``trainable=True``: the closure takes the caller's weight per call
+    (``conv(x, w, ...)``; nothing is prepacked, so mid-epoch updates are
+    never stale) and is differentiable — a ``torch.autograd.Function`` per
+    ``(kx, ky, stride, padding)``. The forward dispatches the same bound
+    plan as inference (implicit kernel included) on a per-call packed f32
+    weight. The backward runs the kernels too: dX is the **transposed-plan**
+    block-sparse GEMM (:func:`block_sparse_matmul`) on the packed output
+    gradient, then the transpose of ``im2col → pack_patches`` scatters the
+    patch gradients back onto the activation; dW visits only the live tiles
+    (:func:`repro_torch.kernels.ops.make_block_sparse_grad_weight`) and
+    flows through the transpose of mask-and-pack, so pruned groups receive
+    *exactly* zero gradient — HAPM's no-resurrection invariant holds by
+    construction. Neither backward GEMM falls through to autograd of a
+    plain version. Incompatible with the forward-only ``bias``/``relu``
+    epilogue and ``quant`` paths (QAT trains through the f32 fake-quant
+    view; this path runs the f32 kernels on whatever view the caller
+    passes).
 
     ``device``: where the bind-time constants (packed weight, epilogue
     rows, dispatch table) live; default: ``weight``'s device, else the
@@ -571,11 +585,6 @@ def make_sparse_conv(layout: ConvGemmLayout, group_mask, *, bm="auto",
             "trainable sparse convs run the plain f32 kernels — the fused "
             "bias/ReLU epilogue and int8-code paths are inference-only "
             "(fold/quantize at inference bind time instead)")
-    if trainable:
-        raise NotImplementedError(
-            "make_sparse_conv(trainable=True) needs the backward kernels "
-            "(transposed-plan dX, block_sparse_grad_weight dW) — they are "
-            "ported with the training slice")
     if out_quant is not None and quant is None:
         raise ValueError(
             "out_quant requantizes the int8 epilogue — it requires quant "
@@ -633,12 +642,13 @@ def make_sparse_conv(layout: ConvGemmLayout, group_mask, *, bm="auto",
                 scale=packed_scale, out_scale=packed_out_scale)
         return mms[bm_eff]
 
-    gm_f32 = torch.as_tensor(np.asarray(gm, np.float32))
+    gm_tables = ops.DeviceTables(gm=np.asarray(gm, np.float32))
 
     def _masked(w):
         spec = layout.spec
         w2 = w.reshape(spec.shape) if tuple(w.shape) != spec.shape else w
-        return apply_group_mask(spec, w2, gm_f32).reshape(w.shape)
+        return apply_group_mask(spec, w2,
+                                gm_tables.on(w.device)["gm"]).reshape(w.shape)
 
     def _pack_w(w):
         wm = _masked(w)
@@ -703,6 +713,63 @@ def make_sparse_conv(layout: ConvGemmLayout, group_mask, *, bm="auto",
         y = layout.unpack_output(out2d, (B, ho, wo))
         return (y, None) if count_skips else y
 
+    # -- trainable path: an autograd.Function per conv geometry ------------
+    # The forward dispatches the same bound plan as inference (implicit
+    # kernel included) but re-packs the caller's weight per call. Backward:
+    #   dX: packed dY  --transposed-plan GEMM-->  packed dPatches
+    #       --transpose of (im2col -> pack_patches)-->  dX   (tensor glue)
+    #   dW: live tiles only (block_sparse_grad_weight), then the transpose
+    #       of (mask -> pack_weight) — the group-mask multiply inside _pack_w
+    #       zeroes pruned groups exactly, dead tiles were never computed.
+    train_fns: dict = {}
+    gemms: dict = {}      # the backward's two GEMMs, keyed by effective bm
+
+    def _transpose(fn, primal, cotangent):
+        """``vjp(fn, primal)(cotangent)`` for the linear glue (slices,
+        reshapes, pads, the mask multiply) around the kernels."""
+        with torch.enable_grad():
+            p = primal.detach().requires_grad_(True)
+            out, = torch.autograd.grad(fn(p), p, cotangent)
+        return out
+
+    def _train_fns(kx, ky, stride, padding):
+        key = (kx, ky, stride, padding)
+        if key in train_fns:
+            return train_fns[key]
+
+        def forward(x, w):
+            return _run(x, _pack_w(w), kx, ky, stride, padding)
+
+        def backward(x, w, g, want_dx, want_dw):
+            B, ho, wo = g.shape[:3]
+            m_rows = B * ho * wo
+            # pack the output gradient onto the kernel's padded N lanes:
+            # unpack_output is a pure slice/reshape, so its transpose is the
+            # packing (zeros into the padded lanes)
+            g2d = _transpose(lambda o2: layout.unpack_output(o2, (B, ho, wo)),
+                             torch.zeros((m_rows, layout.n_packed),
+                                         dtype=g.dtype, device=g.device), g)
+            bm_eff = adaptive_bm(m_rows, bm_cap) if adaptive else bm_cap
+            if bm_eff not in gemms:
+                gemms[bm_eff] = ops._BoundBlockSparseMatmul(plan, tm, bm_eff)
+            with torch.enable_grad():
+                xg = x.detach().requires_grad_(want_dx)
+                patches = layout.pack_patches(
+                    im2col_patches(xg, kx, ky, stride, padding))
+            # dP = dY @ Wp^T on the transposed plan, dWp on the live tiles
+            dp, dwp = gemms[bm_eff].backward(patches.detach(), _pack_w(w),
+                                             g2d, want_dx, want_dw)
+            dx = dw = None
+            if want_dx:      # the transpose of im2col -> pack_patches
+                dx, = torch.autograd.grad(patches, xg, dp)
+                dx = dx.to(x.dtype)
+            if want_dw:      # the transpose of mask-and-pack
+                dw = _transpose(_pack_w, w, dwp).to(w.dtype)
+            return dx, dw
+
+        train_fns[key] = (forward, backward)
+        return train_fns[key]
+
     def _ingest(x):
         if quant is not None and x.dtype != torch.int8:
             return quant.act_codes(x)      # int8 Q3.4 (or calibrated) codes
@@ -714,6 +781,10 @@ def make_sparse_conv(layout: ConvGemmLayout, group_mask, *, bm="auto",
                 raise ValueError("no weight bound at build time — pass w or "
                                  "rebuild with make_sparse_conv(..., weight=w)")
             return _run(_ingest(x), w_packed, *bound_hw, stride, padding)
+        if trainable:
+            return ops.KernelVJP.apply(
+                x, w, _train_fns(int(w.shape[0]), int(w.shape[1]), stride,
+                                 padding))
         return _run(_ingest(x), _pack_w(w), int(w.shape[0]), int(w.shape[1]),
                     stride, padding)
 

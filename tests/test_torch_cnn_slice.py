@@ -258,10 +258,12 @@ def test_bind_errors_and_staleness(model):
         TC.bind_execution(model["tp"], tcfg, quant_spec=TC.Q.QuantSpec(), device="cpu")
     with pytest.raises(TC.PermanentBindError, match="concrete torch tensors"):
         TC.bind_execution(jax.tree.map(np.asarray, model["jp"]), tcfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="training slice"):
-        TC.bind_execution(model["tp"], tcfg, spec=TC.ExecSpec(trainable=True), device="cpu")
-    with pytest.raises(NotImplementedError, match="training slice"):
-        TC.apply(model["tp"], model["ts"], _t(model["x"]), tcfg, train=True)
+    # trainable binds prepack nothing, so they are never stale
+    texec = TC.bind_execution(model["tp"], tcfg, spec=TC.ExecSpec(trainable=True),
+                              device="cpu")
+    assert texec.trainable and texec.bound_weights is None
+    _, new_state = TC.apply(model["tp"], model["ts"], _t(model["x"]), tcfg, train=True)
+    assert new_state is not model["ts"] and set(new_state) == set(model["ts"])
     folded = TC.bind_execution(model["tfold"], tcfg, device="cpu",
                                spec=TC.ExecSpec(folded=True, n_cu=N_CU))
     with pytest.raises(ValueError, match="consume it with apply_folded"):

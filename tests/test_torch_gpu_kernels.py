@@ -1,14 +1,19 @@
 """The CUDA kernels against their plain PyTorch versions **on a GPU**, at
-shapes the serving smoke run does not reach: every rows-per-thread instance
+shapes the smoke run does not reach: every rows-per-thread instance
 (bm 8 ... 128), bf16 operands, column-segmented wide rows, windows that need
 more than 48 KB of shared memory, fully pruned tables, the wrapper's
-refusals. Marked ``gpu``: skipped (with a reason, decided inside a fixture)
+refusals; for the weight-gradient kernel every tile shape of the training
+path, one live tile and all of them in a shuffled order, row counts that
+are not a multiple of the 32-row step, M = 131072, and bit-identical
+results across two launches. Marked ``gpu``: skipped (with a reason, decided inside a fixture)
 on a machine without a CUDA device, run on one with
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu_kernels.py
 
 Bars as everywhere: int8 outputs and skip counters bit-equal, f32 <= 1e-4
-(summation order), bf16 one output ulp."""
+(summation order), bf16 one output ulp; the weight gradient (f32
+accumulation of f32 or bf16 operands) within 1e-4 of the scale of its
+sums, max(|x|ᵀ|g|)."""
 import numpy as np
 import pytest
 
@@ -16,6 +21,7 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.core import groups as TG, quant as TQ
 from repro_torch.kernels import block_sparse_matmul as BSM, implicit_conv as IC
+from repro_torch.kernels import ops as OPS
 from repro_torch.sparse import block_mask as TB, conv_plan as TP
 
 pytestmark = pytest.mark.gpu
@@ -188,3 +194,70 @@ def test_bound_conv_gpu_equals_cpu(dev, packed):
     assert torch.equal(outs[0][0], outs[1][0]) and outs[0][1] == outs[1][1]
     with pytest.raises(ValueError, match="bind and call on one device"):
         conv(x.to(dev))
+
+
+def _grad_case(M, block, dtype, all_tiles, seed, dev):
+    rs = np.random.RandomState(seed)
+    bk, bn = block
+    nKb, nNb = 4, 3
+    cells = rs.permutation(nKb * nNb)[:(nKb * nNb if all_tiles else 1)]
+    kk = torch.from_numpy((cells // nNb).astype(np.int32)).to(dev)
+    nn = torch.from_numpy((cells % nNb).astype(np.int32)).to(dev)
+    x = torch.from_numpy(rs.randn(M, nKb * bk).astype(np.float32)).to(dev).to(dtype)
+    g = torch.from_numpy(rs.randn(M, nNb * bn).astype(np.float32)).to(dev).to(dtype)
+    return x, g, kk, nn
+
+
+def _grad_scale(x, g, kk, nn, block):
+    bk, bn = block
+    ax, ag = x.float().abs(), g.float().abs()
+    return max(float((ax[:, k * bk:(k + 1) * bk].T @ ag[:, n * bn:(n + 1) * bn]).max())
+               for k, n in zip(kk.tolist(), nn.tolist()))
+
+
+@pytest.mark.parametrize("block", [(8, 128), (16, 128), (128, 128)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("M,bm,all_tiles", [(200, 8, False), (200, 8, True),
+                                            (4096, 128, True), (131072, 128, False),
+                                            (131072, 128, True)])
+def test_grad_weight_kernel_vs_plain(dev, block, dtype, M, bm, all_tiles):
+    x, g, kk, nn = _grad_case(M, block, dtype, all_tiles, M + block[0], dev)
+    before = BSM.grad_weight_launch_count()
+    got = BSM.block_sparse_grad_weight(x, g, kk, nn, block=block, bm=bm)
+    again = BSM.block_sparse_grad_weight(x, g, kk, nn, block=block, bm=bm)
+    torch.cuda.synchronize()
+    assert BSM.grad_weight_launch_count() == before + 2
+    assert torch.equal(got, again)                  # fixed reduction order
+    want = BSM.block_sparse_grad_weight_plain(x, g, kk, nn, block=block, bm=bm)
+    assert got.dtype == torch.float32 and got.shape == want.shape
+    err = float((got.double() - want.double()).abs().max())
+    assert err <= 1e-4 * _grad_scale(x, g, kk, nn, block), err
+
+
+@pytest.mark.parametrize("block", [(16, 128), (128, 128)])
+def test_grad_weight_scatter_on_gpu_dead_tiles_zero(dev, block):
+    rs = np.random.RandomState(5)
+    tm = rs.rand(4, 3) < 0.5
+    tm[0, 0], tm[1, 1] = True, False
+    bk, bn = block
+    x = torch.from_numpy(rs.randn(1000, 4 * bk).astype(np.float32)).to(dev)
+    g = torch.from_numpy(rs.randn(1000, 3 * bn).astype(np.float32)).to(dev)
+    dw = OPS.make_block_sparse_grad_weight(tm, block, bm=128)(x, g)
+    torch.cuda.synchronize()
+    dead = torch.from_numpy(~np.repeat(np.repeat(tm, bk, 0), bn, 1)).to(dev)
+    assert bool((dw[dead] == 0).all())
+    want = x.T @ g
+    assert float((dw[~dead] - want[~dead]).abs().max()) <= 1e-4 * float(
+        (x.abs().T @ g.abs()).max())
+
+
+def test_grad_weight_wrapper_refusals(dev):
+    x, g, kk, nn = _grad_case(256, (16, 128), torch.float32, True, 1, dev)
+    with pytest.raises(ValueError, match="bk <= 128"):
+        BSM.block_sparse_grad_weight(x.repeat(1, 4), g, kk, nn, block=(256, 128), bm=128)
+    with pytest.raises(ValueError, match="is on cpu"):
+        BSM.block_sparse_grad_weight(x, g.cpu(), kk, nn, block=(16, 128), bm=128)
+    with pytest.raises(TypeError, match="must be int32"):
+        BSM.block_sparse_grad_weight(x, g, kk.long(), nn, block=(16, 128), bm=128)
+    with pytest.raises(TypeError, match="takes f32/bf16"):
+        BSM.block_sparse_grad_weight(x.double(), g.double(), kk, nn, block=(16, 128), bm=128)

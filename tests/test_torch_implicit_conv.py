@@ -237,8 +237,7 @@ def test_bind_contract_errors():
                             implicit=False)
     with pytest.raises(ValueError, match="inference-only"):
         TP.make_sparse_conv(tl, gm, weight=_t(w), relu=True, trainable=True)
-    with pytest.raises(NotImplementedError, match="training slice"):
-        TP.make_sparse_conv(tl, gm, trainable=True)
+    assert TP.make_sparse_conv(tl, gm, trainable=True).trainable
     with pytest.raises(ValueError, match="no weight bound"):
         TP.make_sparse_conv(tl, gm)(_t(x))
     tile = TP.conv_gemm_layout(TG.tpu_tile_groups((72, 16), (16, 128)))

@@ -31,7 +31,9 @@ def test_port_has_its_modules():
                  "kernels/block_sparse_matmul.py", "kernels/implicit_conv.py",
                  "kernels/ops.py", "models/cnn.py", "configs/resnet21_cifar.py",
                  "launch/exec_cache.py", "launch/resilience.py",
-                 "launch/serve_cnn.py"):
+                 "launch/serve_cnn.py", "launch/train_cnn.py", "core/uniform.py",
+                 "data/synthetic.py", "train/optimizer.py", "train/compression.py",
+                 "train/loop.py", "train/checkpoint.py", "train/cnn_training.py"):
         assert want in names, want
 
 
@@ -67,7 +69,8 @@ def test_importing_the_port_needs_no_compiler():
 def test_kernel_sources_share_one_epilogue_header():
     csrc = ROOT / "src" / "repro_torch" / "csrc"
     cu = sorted(p.name for p in csrc.glob("*.cu"))
-    assert cu == ["block_sparse_matmul.cu", "implicit_conv.cu"]
+    assert cu == ["block_sparse_grad_weight.cu", "block_sparse_matmul.cu",
+                  "implicit_conv.cu"]
     for name in cu:
         text = (csrc / name).read_text()
         assert '#include "epilogue.cuh"' in text
