@@ -23,9 +23,23 @@ Run ``python3 chip_smoke.py`` from the repository root. It
    weights stay exactly zero and (f32 network) that the gradients match
    dense autograd in float64 leaf by leaf, and proving by launch counts
    that the kernels ran; then runs the training command line
-   (``repro_torch.launch.train_cnn``) on a small set at its default bind
-   contract and reports which kernels it launched,
-5. prints one JSON line per phase, then the card's name and power limit, a
+   (``repro_torch.launch.train_cnn``, which also prices its models on the
+   paper's FPGA boards) on a small set at its default bind contract and
+   reports which kernels it launched,
+5. holds the dense int8 matmul kernel (K4) to its plain version and to
+   ``int8_matmul_ref`` bit for bit at the shapes of the JAX package's tests,
+   the widest conv's im2col GEMM at batch 128, 4096^3 and a depth whose
+   sums pass 2^24, timing it against ``torch._int_mm``; then drives
+   ``fixed_point_matmul`` forward and backward on the card against a CPU
+   run of the port (the fixed-point path, K4),
+6. prices the full-width HAPM network against uniform pruning at the same
+   element sparsity with ``accel.simulate(measure_dsb=True)`` on the card,
+   on the paper's three FPGA boards (the pricing path: the activation
+   capture and the accuracy forward on the card, the DSB skip measurement
+   through the implicit conv kernel), holding every field of every report
+   to a CPU run of the port and asserting the paper's ordering; the
+   quickstart (``repro_torch.launch.quickstart``) runs on the card too,
+7. prints one JSON line per phase, then the card's name and power limit, a
    ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device": {...}}``.
 
 Any failing phase raises: the exit code is non-zero and no ``ok`` line is
@@ -37,8 +51,10 @@ often: ``ms`` is the device time per launch with launches queued back to
 back, ``call_ms`` one call on an idle device. ``bound_ms`` counts what the
 convolution needs (real output rows and channels); ``bound_padded_ms`` also
 counts the padded lanes and rows the kernel's output array carries.
-``launches`` sums both main paths (serving and training), each counted
-from zero just before it is driven; ``launches_by_path`` splits them.
+``launches`` sums the four main paths (serving, training, pricing,
+fixed point), each counted from zero just before it is driven;
+``launches_by_path`` splits them. The pricing path's times and GOP/s for
+the FPGA boards are outputs of the cycle model, not times on the card.
 """
 from __future__ import annotations
 
@@ -59,8 +75,10 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch import kernels
-from repro_torch.core import (HAPMConfig, apply_masks, hapm_element_masks,
-                              hapm_epoch_update, hapm_init)
+from repro_torch.accel import BOARDS, simulate
+from repro_torch.core import (HAPMConfig, apply_masks, full_masks, global_sparsity,
+                              hapm_element_masks, hapm_epoch_update, hapm_init,
+                              magnitude_masks)
 from repro_torch.core.groups import fpga_conv_groups
 from repro_torch.core.masks import tree_map
 from repro_torch.core.masks import tree_flatten_with_path
@@ -69,10 +87,13 @@ from repro_torch.data.synthetic import SyntheticCifar
 from repro_torch.kernels import _build
 from repro_torch.kernels import block_sparse_matmul as BSM
 from repro_torch.kernels import implicit_conv as IC
+from repro_torch.kernels import int8_matmul as I8
+from repro_torch.kernels import ref as REF
 from repro_torch.kernels.conv_lowering import (conv_out_size, im2col_patches,
                                                pad_nhwc, same_pads)
-from repro_torch.kernels.ops import _pad_rows, make_block_sparse_grad_weight
-from repro_torch.launch import serve_cnn, train_cnn
+from repro_torch.kernels.ops import (_pad_rows, fixed_point_matmul,
+                                    make_block_sparse_grad_weight)
+from repro_torch.launch import quickstart, serve_cnn, train_cnn
 from repro_torch.launch.serve_cnn import CnnServer
 from repro_torch.models import cnn
 from repro_torch.sparse.conv_plan import (adaptive_bm, conv_gemm_layout,
@@ -99,8 +120,19 @@ KERNEL_INFO = {
         "route": "cuda",
         "source": "src/repro_torch/csrc/block_sparse_grad_weight.cu",
         "replaces": "src/repro/kernels/block_sparse_matmul.py:257"},
+    "int8_matmul": {
+        "route": "cuda",
+        "source": "src/repro_torch/csrc/int8_matmul.cu",
+        "replaces": "src/repro/kernels/int8_matmul.py:72"},
 }
-SERVE_KERNELS = ("block_sparse_matmul", "implicit_block_sparse_conv")
+# the kernels each main path must launch
+PATH_KERNELS = {
+    "serve": ("block_sparse_matmul", "implicit_block_sparse_conv"),
+    "train": ("block_sparse_matmul", "implicit_block_sparse_conv",
+              "block_sparse_grad_weight"),
+    "price": ("implicit_block_sparse_conv",),
+    "fixed_point": ("int8_matmul",),
+}
 
 F32_TOL = 1e-4          # f32 kernels vs plain: summation order differs
 LOGIT_TOL = 1e-5        # int8 contracts: convs exact, only the head's mean+matmul differs
@@ -398,7 +430,8 @@ def compare(name: str, got, want, case) -> float:
 OWN_KERNELS = {"implicit_block_sparse_conv": ("implicit_conv_kernel",),
                "block_sparse_matmul": ("block_sparse_matmul_kernel",),
                "block_sparse_grad_weight": ("grad_weight_partial_kernel",
-                                            "grad_weight_reduce_kernel")}
+                                            "grad_weight_reduce_kernel"),
+               "int8_matmul": ("int8_matmul_kernel",)}
 
 
 def profiler_device_ms(fn, device, reps: int):
@@ -870,7 +903,7 @@ def phase_train(name, cfg, packed: bool, model, batch, device, warmup=3, steps=1
         raise AssertionError(f"{name}: block_sparse_grad_weight launched "
                              f"{launched['block_sparse_grad_weight']} times, expected "
                              f"{n_steps} steps x {live_convs} live convs")
-    for kname in KERNEL_INFO:
+    for kname in PATH_KERNELS["train"]:
         if launched[kname] < 1:
             raise AssertionError(f"{name}: {kname} was not launched")
     if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
@@ -985,31 +1018,269 @@ def phase_train_cli(device):
          test_accuracy=m.test_accuracy, launches={k: after[k] - before[k] for k in after})
 
 
-def kernels_line(serve_path, train_path, worst, rep, rep_gw):
+# ---------------------------------------------------------------------------
+# phase: the dense int8 matmul kernel (K4) against its plain version
+# ---------------------------------------------------------------------------
+
+# (label, real (M, K, N), padded (M, K, N)): the three shapes of the JAX
+# package's K4 tests (M = 100 padded to a 128 multiple as fixed_point_matmul
+# pads it), the dense im2col GEMM of the widest conv (s2b*/conv2: 3x3,
+# 64 -> 64 at 8x8, batch 128) with K and N zero-padded to 128 multiples,
+# 4096^3, and a depth whose sums pass 2^24
+INT8_SHAPES = (
+    ("test_128x128x128", (128, 128, 128), (128, 128, 128)),
+    ("test_100x256x128", (100, 256, 128), (128, 256, 128)),
+    ("test_256x384x256", (256, 384, 256), (256, 384, 256)),
+    ("s2b_conv2_im2col_b128", (8192, 576, 64), (8192, 640, 128)),
+    ("square_4096", (4096, 4096, 4096), (4096, 4096, 4096)),
+    ("deep_k1152", (512, 1152, 256), (512, 1152, 256)),
+)
+INT8_REP = "s2b_conv2_im2col_b128"
+FIXED_POINT_SHAPE = (8192, 640, 128)
+FIXED_POINT_DX_TOL = 1e-4       # dx = g wᵀ: 128-term f32 sums, absolute
+FIXED_POINT_DW_REL_TOL = 1e-4   # dw = xᵀ g: 8192-term f32 sums, x max(|x|ᵀ|g|)
+
+
+def int8_codes(real, padded, rs):
+    """Codes over the whole int8 range, -128 included, with one row of x and
+    one column of w at -128 and one at 127 (sums of K * 2^14 at the extreme),
+    zero-padded from the real to the padded shape."""
+    (m, k, n), (M, K, N) = real, padded
+    x = np.zeros((M, K), np.int8)
+    w = np.zeros((K, N), np.int8)
+    x[:m, :k] = rs.randint(-128, 128, (m, k))
+    w[:k, :n] = rs.randint(-128, 128, (k, n))
+    x[0, :k], w[:k, 0] = -128, -128
+    x[m - 1, :k], w[:k, n - 1] = 127, 127
+    return x, w
+
+
+def gemm_bound(m, k, n, scale_len):
+    """(ms, by): int8 operands read once, the scale row read once, the f32
+    output written once; 2*m*k*n int8 operations."""
+    t_b = (m * k + k * n + 4 * scale_len + 4 * m * n) / PEAK_BYTES_S
+    t_o = 2 * m * k * n / PEAK_OPS_S["int8"]
+    return max(t_b, t_o) * 1e3, ("bytes" if t_b >= t_o else "operations")
+
+
+def phase_kernels_int8_matmul(device, reps: int, plain_reps: int):
+    """K4 at every shape of INT8_SHAPES with both scale forms: bit-equal to
+    ``int8_matmul_plain`` and to ``int8_matmul_ref`` on the card, two
+    launches bit-identical; timed with the scalar scale (the fixed-point
+    path's). Returns (worst error, the row of the representative shape)."""
+    rs = np.random.RandomState(13)
+    rows, rep = [], {}
+    for label, real, padded in INT8_SHAPES:
+        xn, wn = int8_codes(real, padded, rs)
+        M, K, N = padded
+        x, w = torch.from_numpy(xn).to(device), torch.from_numpy(wn).to(device)
+        acc_max = int(REF.int_matmul_exact(x, w).abs().max())    # on the card
+        scales = {"scalar": torch.tensor([1.0 / 512], device=device),
+                  "per_cout": torch.from_numpy(
+                      rs.uniform(1e-3, 1e-1, N).astype(np.float32)).to(device)}
+        for form, scale in scales.items():
+            got = I8.int8_matmul(x, w, scale)
+            again = I8.int8_matmul(x, w, scale)
+            sync(device)
+            want = I8.int8_matmul_plain(x, w, scale)
+            ref = REF.int8_matmul_ref(x, w, scale if form == "per_cout" else 1.0 / 512)
+            name = f"int8_matmul {label} scale={form}"
+            if not torch.equal(got, again):
+                raise AssertionError(f"{name}: two launches differ")
+            for what, other in (("plain version", want), ("int8_matmul_ref", ref)):
+                if got.dtype != other.dtype or not torch.equal(got, other):
+                    err = float((got.double() - other.double()).abs().max())
+                    raise AssertionError(f"{name}: differs from the {what} by {err}")
+        if label == "deep_k1152" and acc_max <= 2 ** 24:
+            raise AssertionError(f"{label}: no sum passes 2^24 ({acc_max})")
+        scale = scales["scalar"]
+        run = lambda fn: fn(x, w, scale)
+        row = {"shape": label, "M": M, "K": K, "N": N, "real": list(real),
+               "max_abs_acc": acc_max, "max_abs_err": 0.0, "forms": list(scales)}
+        row["ms"] = device_ms(lambda: run(I8.int8_matmul), device, reps)
+        row["call_ms"] = time_ms(lambda: run(I8.int8_matmul), device, reps)
+        row["plain_ms"] = time_ms(lambda: run(I8.int8_matmul_plain), device, plain_reps,
+                                  warmup=1)
+        row["bound_ms"], row["bound_by"] = gemm_bound(*real, 1)
+        row["bound_padded_ms"] = gemm_bound(M, K, N, 1)[0]
+        try:       # cuBLAS int8 with an f32 flush: a yardstick only
+            lib = lambda: torch._int_mm(x, w).float() * scale
+            row["library_equal"] = bool(torch.equal(lib(), I8.int8_matmul(x, w, scale)))
+            row["library_ms"] = device_ms(lib, device, reps)
+        except RuntimeError as e:
+            row["library_ms"], row["library_error"] = None, str(e).splitlines()[0]
+        rows.append(row)
+        if label == INT8_REP:
+            prof = profiler_device_ms(lambda: run(I8.int8_matmul), device, reps)
+            row["profiler_ms"] = None if prof is None else prof["total_ms"]
+            rep = row
+    emit("kernels_int8_matmul", reps=reps, plain_reps=plain_reps, tol=0.0, cases=rows)
+    return 0.0, rep
+
+
+# ---------------------------------------------------------------------------
+# main path 3: the fixed-point GEMM (K4)
+# ---------------------------------------------------------------------------
+
+def phase_fixed_point(device):
+    """``fixed_point_matmul`` forward and backward at FIXED_POINT_SHAPE on
+    the card and on the CPU (plain version), on the same float inputs: the
+    forward bit-equal, dx within FIXED_POINT_DX_TOL, dw within
+    FIXED_POINT_DW_REL_TOL x max(|x|ᵀ|g|) (f32 sums over 8192 rows in two
+    orders), TF32 off for the backward's matmuls. Launches K4 once."""
+    M, K, N = FIXED_POINT_SHAPE
+    rs = np.random.RandomState(17)
+    xn = rs.uniform(-4, 4, (M, K)).astype(np.float32)
+    wn = rs.uniform(-2, 2, (K, N)).astype(np.float32)
+    gn = rs.randn(M, N).astype(np.float32)
+    prev_tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        out = {}
+        for d in (device, torch.device("cpu")):
+            x = torch.from_numpy(xn).to(d).requires_grad_()
+            w = torch.from_numpy(wn).to(d).requires_grad_()
+            before = kernels.launch_counts()["int8_matmul"]
+            t0 = time.perf_counter()
+            y = fixed_point_matmul(x, w)
+            y.backward(torch.from_numpy(gn).to(d))
+            if d.type == "cuda":
+                sync(d)
+            out[d.type] = {"y": y.detach().cpu(), "dx": x.grad.cpu(), "dw": w.grad.cpu(),
+                           "s": time.perf_counter() - t0,
+                           "launches": kernels.launch_counts()["int8_matmul"] - before}
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev_tf32
+    g, c = out["cuda"], out["cpu"]
+    err = {k: float((g[k].double() - c[k].double()).abs().max()) for k in ("y", "dx", "dw")}
+    dw_scale = float((np.abs(xn).T @ np.abs(gn)).max())
+    emit("fixed_point", shape=list(FIXED_POINT_SHAPE), launches=g["launches"],
+         max_abs_err_vs_cpu=err, dx_tol=FIXED_POINT_DX_TOL,
+         dw_tol=FIXED_POINT_DW_REL_TOL * dw_scale, gpu_s=g["s"], cpu_s=c["s"],
+         tf32=False)
+    if g["launches"] != 1:
+        raise AssertionError(f"fixed_point: K4 launched {g['launches']} times, expected 1")
+    if not torch.equal(g["y"], c["y"]):
+        raise AssertionError(f"fixed_point: forward differs from the CPU run by {err['y']}")
+    if not err["dx"] <= FIXED_POINT_DX_TOL:
+        raise AssertionError(f"fixed_point: dx off the CPU run by {err['dx']}")
+    if not err["dw"] <= FIXED_POINT_DW_REL_TOL * dw_scale:
+        raise AssertionError(f"fixed_point: dw off the CPU run by {err['dw']}")
+
+
+# ---------------------------------------------------------------------------
+# main path 4: pricing on the paper's boards (accel.simulate)
+# ---------------------------------------------------------------------------
+
+def report_differences(a, b) -> dict:
+    """{field: (a, b)} for every field of two SimulationReports that is not
+    equal (``accel`` aside: the caller passes the same board)."""
+    out = {}
+    for f in dataclasses.fields(a):
+        va, vb = getattr(a, f.name), getattr(b, f.name)
+        if f.name in ("cycles", "cycles_dual") and va is not None and vb is not None:
+            va, vb = dataclasses.asdict(va), dataclasses.asdict(vb)
+        if va != vb:
+            out[f.name] = (va, vb)
+    if a.row() != b.row():
+        out["row"] = {k: (v, b.row()[k]) for k, v in a.row().items() if v != b.row()[k]}
+    return out
+
+
+def phase_price(cfg, device, card):
+    """``simulate(..., images, labels, measure_dsb=True)`` on the card for the
+    full-width HAPM network (group sparsity 0.5, n_cu = 12) and for uniform
+    magnitude pruning at the same element sparsity, on each of the three
+    boards (DSB on), plus the HAPM and the dense network without DSB; every
+    report equal, field by field, to a CPU run of the port on the same
+    weights and frames. Asserts the paper's ordering. Returns the launches
+    of the path (counted from zero just before the card's runs)."""
+    cpu = torch.device("cpu")
+    dense, state = cnn.params_from_numpy(*numpy_model(cfg, 0), device=cpu)
+    hapm, _, masks, _, _ = hapm_model(cfg, 0, N_CU, cpu)
+    s_elem = global_sparsity(masks)
+    uniform = apply_masks(dense, magnitude_masks(
+        dense, full_masks(dense, cnn.is_conv_weight), s_elem))
+    ds = SyntheticCifar(num_train=8, num_test=64, seed=0, image_size=cfg.image_size)
+    frames, labels = ds.test_x, ds.test_y
+    nodsb = dataclasses.replace(BOARDS["zedboard_100mhz_72dsp"], dsb=False)
+    runs = [(f"{m}_{b}", p, board) for b, board in BOARDS.items()
+            for m, p in (("hapm", hapm), ("uniform", uniform))]
+    runs += [("hapm_nodsb", hapm, nodsb), ("dense_nodsb", dense, nodsb),
+             ("dense_zedboard_100mhz_72dsp", dense, BOARDS["zedboard_100mhz_72dsp"])]
+
+    def sim(params, board, dev):
+        return simulate(params, state, cfg, board, frames, labels, measure_dsb=True,
+                        device=dev)
+
+    kernels.reset_launch_counts()
+    on_card, wall = {}, {}
+    for name, params, board in runs:
+        t0 = time.perf_counter()
+        on_card[name] = sim(params, board, device)
+        sync(device)
+        wall[name] = time.perf_counter() - t0
+    launched = kernels.launch_counts()
+    diffs = {}
+    for name, params, board in runs:
+        d = report_differences(on_card[name], sim(params, board, cpu))
+        if d:
+            diffs[name] = d
+    rows = {name: {"board": dataclasses.asdict(board), "simulate_wall_s_on_card": wall[name],
+                   **on_card[name].row()} for name, _, board in runs}
+    gains = {b: on_card[f"uniform_{b}"].mean_time_per_image_s
+             / on_card[f"hapm_{b}"].mean_time_per_image_s for b in BOARDS}
+    emit("price", card=card, element_sparsity=s_elem, frames=len(frames),
+         hapm_over_uniform_cycle_model_fpga=gains, launches=launched,
+         k2_note="at the default packed contract only the two fully pruned 1x1 proj "
+                 "convs of the HAPM model bind, so K2 runs there alone",
+         differences_vs_cpu=diffs, reports=rows)
+    if diffs:
+        raise AssertionError(f"price: the card's reports differ from the CPU run: {diffs}")
+    for b in BOARDS:
+        if not gains[b] > 1.0:
+            raise AssertionError(f"price: HAPM+DSB is not faster than uniform+DSB on {b}")
+    if (on_card["hapm_nodsb"].mean_time_per_image_s
+            < on_card["dense_nodsb"].mean_time_per_image_s):
+        raise AssertionError("price: HAPM without DSB is faster than dense")
+    return launched
+
+
+def phase_quickstart(device):
+    """The quickstart as a user runs it, on the card."""
+    t0 = time.time()
+    base, fast, no_dsb = quickstart.main([])
+    sync(device)
+    emit("quickstart", seconds=time.time() - t0,
+         cycle_model_ms_per_image={"dense_dsb": base.mean_time_per_image_s * 1e3,
+                                   "hapm_dsb": fast.mean_time_per_image_s * 1e3,
+                                   "hapm_no_dsb": no_dsb.mean_time_per_image_s * 1e3})
+
+
+def kernels_line(paths, worst, rep, rep_gw, rep_i8):
     """The ``kernels`` list of the last-but-one line: every ported kernel at
-    its representative shape, with its launches on both main paths."""
+    its representative shape, with its launches on each main path
+    (``paths``: {path: launch counts of its run})."""
     tag = {"block_sparse_matmul": "k1", "implicit_block_sparse_conv": "k2"}
     shape_keys = ("name", "packed", "batch", "H", "stride", "k", "cin", "cout")
+    timing = ("ms", "call_ms", "plain_ms", "bound_ms", "bound_by", "bound_padded_ms",
+              "library_ms")
     lines = []
     for kname in KERNEL_INFO:
-        by_path = {"serve": serve_path[kname], "train": train_path[kname]}
+        by_path = {p: counts[kname] for p, counts in paths.items()}
         common = {"name": kname, **KERNEL_INFO[kname],
                   "launches": sum(by_path.values()), "launches_by_path": by_path,
                   "max_abs_err": worst[kname]}
         if kname in tag:
             t = tag[kname]
-            lines.append({**common, "ms": rep[f"{t}_ms"], "call_ms": rep[f"{t}_call_ms"],
-                          "plain_ms": rep[f"{t}_plain_ms"], "bound_ms": rep[f"{t}_bound_ms"],
-                          "bound_by": rep[f"{t}_bound_by"],
-                          "bound_padded_ms": rep[f"{t}_bound_padded_ms"],
+            lines.append({**common, **{k: rep[f"{t}_{k}"] for k in timing[:-1]},
                           "library_ms": rep["library_ms"],
                           "shape": {k: rep[k] for k in (*shape_keys, "mode")}})
+        elif kname == "int8_matmul":
+            lines.append({**common, **{k: rep_i8[k] for k in timing},
+                          "shape": {k: rep_i8[k] for k in ("shape", "M", "K", "N", "real")}})
         else:
-            lines.append({**common, "ms": rep_gw["ms"], "call_ms": rep_gw["call_ms"],
-                          "plain_ms": rep_gw["plain_ms"], "bound_ms": rep_gw["bound_ms"],
-                          "bound_by": rep_gw["bound_by"],
-                          "bound_padded_ms": rep_gw["bound_padded_ms"],
-                          "library_ms": rep_gw["library_ms"],
+            lines.append({**common, **{k: rep_gw[k] for k in timing},
                           "shape": {k: rep_gw[k] for k in (*shape_keys, "M", "block")}})
     return lines
 
@@ -1047,6 +1318,7 @@ def main(argv=None) -> int:
     worst, rep = phase_kernels(cfg, device, kernel_batch, reps, plain_reps)
     worst["block_sparse_grad_weight"], rep_gw = phase_kernels_grad_weight(
         cfg, device, TRAIN_BATCH, reps, plain_reps)
+    worst["int8_matmul"], rep_i8 = phase_kernels_int8_matmul(device, reps, plain_reps)
 
     # pruned once on the host, so both servers hold identical weights
     host_model = hapm_model(cfg, 0, N_CU, ref_device)[:2]
@@ -1075,10 +1347,7 @@ def main(argv=None) -> int:
                              dense_fallback=2.0, n_cu=N_CU),
                 buckets, models, frames, devices, sizes=[sizes[3]],
                 kernel_name="block_sparse_matmul")
-    serve_path = kernels.launch_counts()
-    for kname in SERVE_KERNELS:
-        if serve_path[kname] < 1:
-            raise AssertionError(f"the serving path never launched {kname}")
+    paths = {"serve": kernels.launch_counts()}
 
     phase_default_cli(device)
     phase_ladder(cfg, cnn.ExecSpec(packed=True, **streamed), buckets, models,
@@ -1093,10 +1362,7 @@ def main(argv=None) -> int:
     kernels.reset_launch_counts()
     train_u = phase_train("train_unpacked", qat, False, train_model, batch, device)
     train_p = phase_train("train_packed", qat, True, train_model, batch, device)
-    train_path = kernels.launch_counts()
-    for kname in KERNEL_INFO:
-        if train_path[kname] < 1:
-            raise AssertionError(f"the training path never launched {kname}")
+    paths["train"] = kernels.launch_counts()
 
     phase_train_grad_parity(dataclasses.replace(cfg, quantized=False), train_model,
                             batch, device)
@@ -1106,9 +1372,24 @@ def main(argv=None) -> int:
         f"{label}_{k}": out[k] for label, out in (("unpacked", train_u), ("packed", train_p))
         for k in ("step_p50_ms", "step_p99_ms", "device_ms_per_step", "kernel_share")})
 
+    # ---- main path 3, fixed point: K4 under fixed_point_matmul
+    kernels.reset_launch_counts()
+    phase_fixed_point(device)
+    paths["fixed_point"] = kernels.launch_counts()
+
+    # ---- main path 4, pricing: simulate on the card (counts reset inside,
+    # just before the card's runs)
+    paths["price"] = phase_price(cfg, device, card)
+    phase_quickstart(device)
+
+    for path, counts in paths.items():
+        for kname in PATH_KERNELS[path]:
+            if counts[kname] < 1:
+                raise AssertionError(f"the {path} path never launched {kname}")
+
     emit("done", seconds=time.time() - t_start)
     print(card, flush=True)
-    print(json.dumps({"kernels": kernels_line(serve_path, train_path, worst, rep, rep_gw)}),
+    print(json.dumps({"kernels": kernels_line(paths, worst, rep, rep_gw, rep_i8)}),
           flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,6 +1,6 @@
 """The paper's own validation network (ResNet-type, 21 conv layers,
-CIFAR-10). The measured FPGA board configurations of the JAX package's
-module arrive with the accelerator-model slice of the port."""
+CIFAR-10) + the measured board configurations."""
+from ..accel.config import BOARDS, ZEDBOARD_100, ZEDBOARD_83_144, ZYBO_70
 from ..models.cnn import ResNetConfig
 
 CONFIG = ResNetConfig()                       # fp32

@@ -14,14 +14,18 @@ def launch_counts() -> Dict[str, int]:
     """{kernel name: CUDA launches since the last reset}."""
     from . import block_sparse_matmul as bsm
     from . import implicit_conv as ic
+    from . import int8_matmul as i8
     return {"block_sparse_matmul": bsm.launch_count(),
             "implicit_block_sparse_conv": ic.launch_count(),
-            "block_sparse_grad_weight": bsm.grad_weight_launch_count()}
+            "block_sparse_grad_weight": bsm.grad_weight_launch_count(),
+            "int8_matmul": i8.launch_count()}
 
 
 def reset_launch_counts() -> None:
     from . import block_sparse_matmul as bsm
     from . import implicit_conv as ic
+    from . import int8_matmul as i8
     bsm.reset_launch_count()
     bsm.reset_grad_weight_launch_count()
     ic.reset_launch_count()
+    i8.reset_launch_count()

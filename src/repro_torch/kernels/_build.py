@@ -129,6 +129,8 @@ def load() -> ctypes.CDLL:
     lib.hapm_implicit_block_sparse_conv.restype = I
     lib.hapm_block_sparse_grad_weight.argtypes = [P] * 6 + [I] * 9 + [P]
     lib.hapm_block_sparse_grad_weight.restype = I
+    lib.hapm_int8_matmul.argtypes = [P] * 4 + [I] * 5 + [P]
+    lib.hapm_int8_matmul.restype = I
     _lib = lib
     return lib
 

@@ -15,9 +15,11 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..core import quant as Q
 from ..sparse.block_mask import (BlockSparsePlan, plan_from_tile_mask,
                                  transpose_plan)
 from .block_sparse_matmul import block_sparse_grad_weight, block_sparse_matmul
+from .int8_matmul import int8_matmul
 
 
 def _pad_rows(x2d: torch.Tensor, bm: int):
@@ -191,6 +193,41 @@ def make_block_sparse_matmul(plan: BlockSparsePlan, tile_mask: np.ndarray, *,
         return KernelVJP.apply(x, w, fns)
 
     return f
+
+
+def fixed_point_matmul(
+    x: torch.Tensor,                # (..., K) float
+    w: torch.Tensor,                # (K, N) float
+    x_fmt: Q.QFormat = Q.Q3_4,
+    w_fmt: Q.QFormat = Q.Q2_5,
+    *,
+    bm: int = 128,
+) -> torch.Tensor:
+    """Paper-faithful fixed-point GEMM: quantize to integer codes, int8
+    matmul (:func:`int8_matmul`, the kernel on a CUDA tensor), scalar
+    dequant. Rows are zero-padded to the ``bm`` multiple; ``K`` and ``N``
+    must be multiples of the kernel's 128-wide blocks. Straight-through
+    gradient, on the float operands: ``dx = g @ wᵀ``, ``dw = x2dᵀ @ g2d``
+    (plain matmuls, as the JAX package leaves them outside its kernels)."""
+    lead = x.shape[:-1]
+    K, N = w.shape
+
+    def forward(x, w):
+        xc = Q.to_int8(x, x_fmt).reshape(-1, K)
+        wc = Q.to_int8(w, w_fmt)
+        xp, M = _pad_rows(xc, bm)
+        scale = torch.tensor([1.0 / (x_fmt.scale * w_fmt.scale)],
+                             dtype=torch.float32, device=x.device)
+        out = int8_matmul(xp, wc, scale, bm=bm)[:M]
+        return out.reshape(*lead, N).to(x.dtype)
+
+    def backward(x, w, g, want_dx, want_dw):
+        dx = (g @ w.t()).to(x.dtype) if want_dx else None
+        dw = ((x.reshape(-1, K).t() @ g.reshape(-1, N)).to(w.dtype)
+              if want_dw else None)
+        return dx, dw
+
+    return KernelVJP.apply(x, w, (forward, backward))
 
 
 def block_sparse_from_hapm(w: np.ndarray, element_mask: np.ndarray,

@@ -29,15 +29,16 @@ def block_sparse_matmul_ref(x: torch.Tensor, w: torch.Tensor, tile_mask,
 
 def int_matmul_exact(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Exact int32 product ``a (…, K) @ b (K, N)`` of int8-range codes.
-    While ``K·127² < 2^24`` every partial sum is an integer that f32 holds
-    exactly, so the product runs as an f32 matmul; deeper products use the
-    CPU's int32 matmul, or f64 on CUDA (PyTorch has no integer matmul
-    there; f64 holds ``K·127² ≪ 2^53`` exactly)."""
-    k = a.shape[-1]
-    if k * 127 * 127 < 2 ** 24:
-        return (a.to(torch.float32) @ b.to(torch.float32)).to(torch.int32)
+    On CUDA the product runs in f64 at every K (PyTorch has no integer
+    matmul there; f64 holds ``K·128² ≪ 2^53`` exactly, and no TF32 setting
+    touches it). On the CPU, while ``K·128² < 2^24`` every partial sum is an
+    integer that f32 holds exactly (−128 codes included), so the product
+    runs as an f32 matmul; deeper products use the int32 matmul."""
     if a.is_cuda:
         return (a.to(torch.float64) @ b.to(torch.float64)).to(torch.int32)
+    k = a.shape[-1]
+    if k * 128 * 128 < 2 ** 24:
+        return (a.to(torch.float32) @ b.to(torch.float32)).to(torch.int32)
     return a.to(torch.int32) @ b.to(torch.int32)
 
 

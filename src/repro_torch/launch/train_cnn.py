@@ -17,9 +17,11 @@ pruned 1x1 projections, so the weight-gradient kernel is not launched.
 Training every conv through the kernels needs ``dense_fallback=2.0``
 (``make_sparse_train_step`` on such a bind, as ``chip_smoke.py`` does).
 
-The twin of the JAX package's ``examples/train_cifar_hapm.py``. Pricing the
-result on the accelerator boards (``repro.accel.simulate`` there) waits for
-the port of ``accel/``.
+Between training and the checks it prices the int8 and the HAPM model on
+the paper's three FPGA boards (``accel.simulate``, DSB on): cycle-model
+figures for those boards, not times on the device the program runs on.
+
+The twin of the JAX package's ``examples/train_cifar_hapm.py``.
 
     PYTHONPATH=src python -m repro_torch.launch.train_cnn            # on the GPU
     PYTHONPATH=src python -m repro_torch.launch.train_cnn --device cpu --epochs 1 --train-size 256
@@ -32,6 +34,7 @@ import argparse
 
 import torch
 
+from ..accel import BOARDS, simulate
 from ..core import apply_masks
 from ..core import quant as Q
 from ..core.masks import global_sparsity, tree_flatten_with_path
@@ -82,13 +85,25 @@ def main(argv=None):
           f"| HAPM acc={m4.test_accuracy:.3f} "
           f"(weight sparsity {global_sparsity(m4.masks):.2f})")
 
+    print("\naccelerator pricing (cycle model, DSB on):")
+    imgs = torch.from_numpy(ds.test_x[:256]).to(dev)
+    labels = torch.from_numpy(ds.test_y[:256]).to(dev)
+    for name, board in BOARDS.items():
+        r2 = simulate(m2.params, m2.state, m2.cfg, board, imgs, labels, device=dev)
+        r4 = simulate(m4.params, m4.state, m4.cfg, board, imgs, labels, device=dev)
+        print(f"  {name:>24}: int8 {r2.mean_time_per_image_s*1e3:6.2f} ms -> "
+              f"HAPM {r4.mean_time_per_image_s*1e3:6.2f} ms "
+              f"({r2.mean_time_per_image_s/r4.mean_time_per_image_s:.2f}x)")
+
     # --- executed sparse inference through the kernels --------------------
     print("\nexecuted sparse inference (block-sparse kernels):")
+    board12 = BOARDS["zedboard_100mhz_72dsp"]          # n_cu = 12
+    r12 = simulate(m4.params, m4.state, m4.cfg, board12)
     exec_ = cnn.bind_execution(
         m4.params, m4.cfg,
-        spec=cnn.ExecSpec(packed=False, quantized=True, n_cu=12), device=dev)
-    small = torch.from_numpy(ds.test_x[:2]).to(dev)
-    labels = torch.from_numpy(ds.test_y[:2]).to(dev)
+        spec=cnn.ExecSpec(packed=False, quantized=True, n_cu=board12.n_cu),
+        device=dev)
+    small, labels = imgs[:2], labels[:2]
     with torch.no_grad():
         dense_logits, _ = cnn.apply(m4.params, m4.state, small, m4.cfg)
         sparse_logits, _ = cnn.apply(m4.params, m4.state, small, m4.cfg,
@@ -101,7 +116,8 @@ def main(argv=None):
         raise AssertionError("config outgrew the f32-exactness bound — "
                              "compare with a wider tolerance")
     print(f"  dispatched grid steps/image: {executed}/{dense_steps} "
-          f"({executed / dense_steps:.2f} of dense) | executed-int8 vs QAT "
+          f"({executed / dense_steps:.2f} of dense) | DSB cycle ratio "
+          f"{r12.dsb_cycle_ratio:.2f} | executed-int8 vs QAT "
           f"logits: max |sparse - dense| = {err:.2e}, bitwise equal: "
           f"{bool(torch.equal(sparse_logits, dense_logits))}, "
           f"max |Δ Q3.4 code| = {code_delta}")
@@ -112,7 +128,7 @@ def main(argv=None):
     # dense reference and sparse path differentiate the SAME loss, i.e.
     # through apply_masks (the train step masks before the forward)
     texec = cnn.bind_execution(
-        m4.params, m4.cfg, spec=cnn.ExecSpec(trainable=True, n_cu=12),
+        m4.params, m4.cfg, spec=cnn.ExecSpec(trainable=True, n_cu=board12.n_cu),
         device=dev)
     tbatch = {"x": small, "y": labels}
 

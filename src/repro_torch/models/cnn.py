@@ -25,6 +25,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..accel.cycle_model import ConvLayerDims
 from ..core import quant as Q
 from ..core.groups import fpga_conv_groups
 from ..core.masks import (to_numpy, tree_flatten_with_path, tree_map,
@@ -1023,6 +1024,24 @@ def conv_layer_order(cfg: ResNetConfig):
             feat = out
             cin = width
     return order
+
+
+def layer_dims(cfg: ResNetConfig, params: PyTree):
+    """ConvLayerDims (padded sizes) per conv layer, execution order —
+    feeds the Eq.-3 cycle model."""
+    dims = []
+    for path, stride, feat in conv_layer_order(cfg):
+        kx, ky, cin, cout = (int(d) for d in _get_path(params, path).shape)
+        out = -(-feat // stride)           # SAME conv output
+        padded = (out - 1) * stride + kx   # input size incl. padding (Alg. 1 note)
+        dims.append((path, ConvLayerDims(
+            n_ix=max(padded, feat), n_iy=max(padded, feat),
+            n_if=cin, n_of=cout, kx=kx, ky=ky, sx=stride, sy=stride)))
+    return dims
+
+
+def network_ops(cfg: ResNetConfig, params: PyTree) -> int:
+    return sum(d.ops for _, d in layer_dims(cfg, params))
 
 
 def fold_batchnorm(params: PyTree, state: PyTree, cfg: ResNetConfig) -> PyTree:

@@ -5,7 +5,10 @@ more than 48 KB of shared memory, fully pruned tables, the wrapper's
 refusals; for the weight-gradient kernel every tile shape of the training
 path, one live tile and all of them in a shuffled order, row counts that
 are not a multiple of the 32-row step, M = 131072, and bit-identical
-results across two launches. Marked ``gpu``: skipped (with a reason, decided inside a fixture)
+results across two launches; for the dense int8 matmul (K4) every
+rows-per-thread instance, narrow column tiles, K tails shorter than its
+32-deep slice, sums past 2^24 and both scale forms, bit-equal to the plain
+version and to ``int8_matmul_ref``. Marked ``gpu``: skipped (with a reason, decided inside a fixture)
 on a machine without a CUDA device, run on one with
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu_kernels.py
@@ -21,6 +24,7 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.core import groups as TG, quant as TQ
 from repro_torch.kernels import block_sparse_matmul as BSM, implicit_conv as IC
+from repro_torch.kernels import int8_matmul as I8, ref as REF
 from repro_torch.kernels import ops as OPS
 from repro_torch.sparse import block_mask as TB, conv_plan as TP
 
@@ -261,3 +265,77 @@ def test_grad_weight_wrapper_refusals(dev):
         BSM.block_sparse_grad_weight(x, g, kk.long(), nn, block=(16, 128), bm=128)
     with pytest.raises(TypeError, match="takes f32/bf16"):
         BSM.block_sparse_grad_weight(x.double(), g.double(), kk, nn, block=(16, 128), bm=128)
+
+
+# --- K4: dense int8 matmul -------------------------------------------------
+
+def _int8_case(M, K, N, per_cout, seed, dev):
+    """Codes over the whole int8 range, -128 included, plus a row and a
+    column of -128 and of 127, so some sums pass 2^24 once K >= 1024 and the
+    int -> f32 conversion rounds."""
+    rs = np.random.RandomState(seed)
+    x = rs.randint(-128, 128, (M, K)).astype(np.int8)
+    w = rs.randint(-128, 128, (K, N)).astype(np.int8)
+    x[0], w[:, 0] = -128, -128
+    x[-1], w[:, -1] = 127, 127
+    scale = (rs.uniform(1e-3, 1e-1, N).astype(np.float32) if per_cout
+             else np.asarray([1.0 / 512], np.float32))
+    to = lambda a: torch.from_numpy(a).to(dev)
+    return to(x), to(w), to(scale)
+
+
+@pytest.mark.parametrize("M,K,N,bm,bk,bn", [
+    (128, 128, 128, 128, 128, 128), (256, 384, 256, 128, 128, 128),
+    (512, 1152, 256, 128, 128, 128), (256, 2048, 384, 128, 128, 128),
+    (48, 40, 96, 16, 8, 32), (96, 100, 64, 32, 4, 64), (192, 36, 24, 64, 4, 8),
+    (24, 33, 40, 8, 1, 8)], ids=lambda v: str(v))
+@pytest.mark.parametrize("per_cout", [False, True], ids=["scalar", "per_cout"])
+def test_int8_matmul_kernel_vs_plain(dev, M, K, N, bm, bk, bn, per_cout):
+    x, w, scale = _int8_case(M, K, N, per_cout, M + K + N, dev)
+    before = I8.launch_count()
+    got = I8.int8_matmul(x, w, scale, bm=bm, bk=bk, bn=bn)
+    again = I8.int8_matmul(x, w, scale, bm=bm, bk=bk, bn=bn)
+    torch.cuda.synchronize()
+    assert I8.launch_count() == before + 2
+    assert torch.equal(got, again)
+    want = I8.int8_matmul_plain(x, w, scale, bm=bm, bk=bk, bn=bn)
+    _check(got, want, 0)
+    _check(got, REF.int8_matmul_ref(x, w, scale if per_cout else 1.0 / 512), 0)
+    # the CPU's plain version gives the same bits
+    _check(got.cpu(), I8.int8_matmul_plain(x.cpu(), w.cpu(), scale.cpu(), bm=bm,
+                                           bk=bk, bn=bn), 0)
+
+
+def test_fixed_point_matmul_gpu_equals_cpu(dev):
+    rs = np.random.RandomState(3)
+    x = rs.uniform(-4, 4, (100, 256)).astype(np.float32)
+    w = rs.uniform(-2, 2, (256, 128)).astype(np.float32)
+    g = rs.randn(100, 128).astype(np.float32)
+    outs = {}
+    for d in (dev, torch.device("cpu")):
+        xt = torch.from_numpy(x).to(d).requires_grad_()
+        wt = torch.from_numpy(w).to(d).requires_grad_()
+        before = I8.launch_count()
+        y = OPS.fixed_point_matmul(xt, wt)
+        y.backward(torch.from_numpy(g).to(d))
+        outs[d.type] = (y.detach().cpu(), xt.grad.cpu(), wt.grad.cpu(),
+                        I8.launch_count() - before)
+    (y, dx, dw, n), (y0, dx0, dw0, n0) = outs["cuda"], outs["cpu"]
+    assert n == 1 and n0 == 0
+    assert torch.equal(y, y0)
+    assert float((dx - dx0).abs().max()) <= 1e-4
+    assert float((dw - dw0).abs().max()) <= 1e-4 * float((np.abs(x).T @ np.abs(g)).max())
+
+
+def test_int8_matmul_wrapper_refusals(dev):
+    x, w, scale = _int8_case(128, 128, 128, True, 1, dev)
+    with pytest.raises(ValueError, match="bm <= 128"):
+        I8.int8_matmul(x.repeat(2, 1), w, scale, bm=256)
+    with pytest.raises(ValueError, match="is on cpu"):
+        I8.int8_matmul(x, w.cpu(), scale)
+    with pytest.raises(TypeError, match="int8 codes"):
+        I8.int8_matmul(x.float(), w, scale)
+    with pytest.raises(ValueError, match="tile-aligned"):
+        I8.int8_matmul(x[:100], w, scale)
+    with pytest.raises(ValueError, match="scale must be"):
+        I8.int8_matmul(x, w, scale[:7])

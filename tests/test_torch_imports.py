@@ -33,7 +33,10 @@ def test_port_has_its_modules():
                  "launch/exec_cache.py", "launch/resilience.py",
                  "launch/serve_cnn.py", "launch/train_cnn.py", "core/uniform.py",
                  "data/synthetic.py", "train/optimizer.py", "train/compression.py",
-                 "train/loop.py", "train/checkpoint.py", "train/cnn_training.py"):
+                 "train/loop.py", "train/checkpoint.py", "train/cnn_training.py",
+                 "accel/config.py", "accel/cycle_model.py", "accel/scheduler.py",
+                 "accel/simulator.py", "kernels/int8_matmul.py",
+                 "launch/quickstart.py"):
         assert want in names, want
 
 
@@ -70,7 +73,7 @@ def test_kernel_sources_share_one_epilogue_header():
     csrc = ROOT / "src" / "repro_torch" / "csrc"
     cu = sorted(p.name for p in csrc.glob("*.cu"))
     assert cu == ["block_sparse_grad_weight.cu", "block_sparse_matmul.cu",
-                  "implicit_conv.cu"]
+                  "implicit_conv.cu", "int8_matmul.cu"]
     for name in cu:
         text = (csrc / name).read_text()
         assert '#include "epilogue.cuh"' in text

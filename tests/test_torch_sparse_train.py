@@ -256,3 +256,9 @@ def test_train_cli_on_cpu():
     assert done.returncode == 0, done.stderr[-3000:]
     assert "sparse-kernel training grads" in done.stdout and "HAPM acc=" in done.stdout
     assert "[hapm] epoch 1/1" in done.stdout and "sparse-exec" in done.stdout
+    # the board pricing: int8 against HAPM on each of the three boards, and
+    # the one-group-per-tile DSB cycle ratio beside the executed-int8 check
+    assert "accelerator pricing (cycle model, DSB on)" in done.stdout
+    for board in ("zybo_70mhz_72dsp", "zedboard_100mhz_72dsp", "zedboard_83mhz_144dsp"):
+        assert f"{board}: int8" in done.stdout
+    assert "DSB cycle ratio" in done.stdout
