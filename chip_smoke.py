@@ -3,13 +3,16 @@
 
 Run ``python3 chip_smoke.py`` from the repository root. It
 
-1. builds the CUDA kernels from ``src/repro_torch/csrc`` with ``nvcc``,
+1. builds the CUDA kernels from ``src/repro_torch/csrc`` with ``nvcc`` and
+   checks with ``cuobjdump -sass`` that the int8 instances of the implicit
+   conv kernel (K2) hold tensor-core (``IMMA``) instructions,
 2. holds each kernel against its plain PyTorch version on the GPU at the
    layer shapes of the full-width ``ResNetConfig()`` (bit equality for int8
    outputs and skip counters, <= 1e-4 for f32), timing kernel, plain version
    and ``F.conv2d`` as a yardstick (``*_ms``: device time per launch with
    the launches queued back to back; ``*_call_ms``: one call on an idle
-   device, host-side wrapper included),
+   device, host-side wrapper included); the representative geometry also
+   at batch 1, serving's smallest bucket,
 3. serves the full-width, HAPM-pruned (0.5), random-weight network through
    ``CnnServer`` in both tile layouts (implicit kernel on all 21 layers), the
    materializing contract, the default command-line contract and every rung
@@ -53,8 +56,12 @@ convolution needs (real output rows and channels); ``bound_padded_ms`` also
 counts the padded lanes and rows the kernel's output array carries.
 ``launches`` sums the four main paths (serving, training, pricing,
 fixed point), each counted from zero just before it is driven;
-``launches_by_path`` splits them. The pricing path's times and GOP/s for
-the FPGA boards are outputs of the cycle model, not times on the card.
+``launches_by_path`` splits them. K2's entry also has ``by_mode``: its int8
+(``streamed``, ``int8``) and f32 instances at the representative geometry,
+and streamed at batch 1 in both layouts, each beside its bound and the cuDNN
+yardstick. The ``timing`` phase gives each bucket's device time per kernel
+(``device_ms_by_kernel``). The pricing path's times and GOP/s for the FPGA
+boards are outputs of the cycle model, not times on the card.
 """
 from __future__ import annotations
 
@@ -163,6 +170,34 @@ def gpu_name_and_limit() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True, timeout=60)
     return out.stdout.strip().splitlines()[0] if out.stdout.strip() else "unknown"
+
+
+# K2's int8 instances, by the name of their kernel template
+K2_INT8_KERNEL = "implicit_conv_kernel_imma"
+
+
+def tensor_core_instances() -> dict:
+    """{K2 int8 instance: IMMA instructions in its SASS} from ``cuobjdump
+    -sass`` of the built library. Raises unless each of the four int8
+    instances of K2 (one per m16 tiles per block) holds tensor-core (IMMA)
+    instructions: the proof that the int8 products run on the tensor cores."""
+    tool = os.path.join(os.path.dirname(_build.find_nvcc()), "cuobjdump")
+    sass = subprocess.run([tool, "-sass", str(_build.library_path())], text=True,
+                          stdout=subprocess.PIPE, stderr=subprocess.STDOUT, timeout=300)
+    if sass.returncode != 0:
+        raise RuntimeError(f"cuobjdump failed: {sass.stdout[-2000:]}")
+    counts, fn = {}, None
+    for line in sass.stdout.splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :", 1)[1].strip()
+            counts[fn] = 0
+        elif fn is not None and "IMMA" in line:
+            counts[fn] += 1
+    k2 = {f: n for f, n in counts.items() if "implicit_conv_kernel" in f}
+    int8 = {f: n for f, n in k2.items() if K2_INT8_KERNEL in f}
+    if len(int8) < 4 or not all(int8.values()):
+        raise AssertionError(f"K2's int8 instances lack IMMA instructions: {k2}")
+    return int8
 
 
 def sync(device) -> None:
@@ -491,60 +526,81 @@ def library_ms(case, device, reps) -> float:
         return device_ms(fn, device, reps)
 
 
+def kernel_case_row(case, device, reps: int, plain_reps: int, worst) -> dict:
+    """Both conv kernels on one case: held to their plain versions (raises
+    on a difference), timed beside their bounds and the cuDNN yardstick."""
+    row = {k: case[k] for k in ("name", "packed", "mode", "batch",
+                                "H", "stride", "k", "cin", "cout")}
+    row["live_tiles"] = int(case["common"]["cnt"].sum())
+    row["pruned_columns"] = int((case["common"]["cnt"] == 0).sum())
+    for kname, run, kern, plain, bkey in (
+            ("implicit_block_sparse_conv", run_k2,
+             IC.implicit_block_sparse_conv,
+             IC.implicit_block_sparse_conv_plain, "bound_k2"),
+            ("block_sparse_matmul", run_k1, BSM.block_sparse_matmul,
+             BSM.block_sparse_matmul_plain, "bound_k1")):
+        got = run(kern, case)
+        sync(device)
+        want = run(plain, case)
+        err = compare(kname, got, want, case)
+        worst[kname] = max(worst[kname], err)
+        tag = "k2" if kname.startswith("implicit") else "k1"
+        row[f"{tag}_max_abs_err"] = err
+        row[f"{tag}_ms"] = device_ms(lambda: run(kern, case), device, reps)
+        row[f"{tag}_call_ms"] = time_ms(lambda: run(kern, case), device, reps)
+        row[f"{tag}_plain_ms"] = time_ms(lambda: run(plain, case),
+                                         device, plain_reps, warmup=1)
+        (row[f"{tag}_bound_ms"], row[f"{tag}_bound_by"],
+         row[f"{tag}_bound_padded_ms"]) = case[bkey]
+        if isinstance(got, tuple):
+            row["skipped_steps"] = int(got[1].sum())
+            row["live_steps"] = int(got[1].shape[0]) * row["live_tiles"]
+    if case.get("profile"):
+        for tag, run, kern in (("k2", run_k2, IC.implicit_block_sparse_conv),
+                               ("k1", run_k1, BSM.block_sparse_matmul)):
+            prof = profiler_device_ms(lambda: run(kern, case), device, reps)
+            row[f"{tag}_profiler_ms"] = None if prof is None else prof["total_ms"]
+    row["library_ms"] = library_ms(case, device, reps)
+    if case.get("profile"):
+        row["library_profiler_ms"] = case.get("library_profiler_ms")
+    return row
+
+
 def phase_kernels(cfg, device, batch: int, reps: int, plain_reps: int):
+    """K1 and K2 at every distinct layer geometry, both layouts, all three
+    modes at ``batch``, then the representative geometry streamed at batch 1.
+    Returns (worst errors, the representative row, {mode: row} of the
+    representative geometry unpacked)."""
     rs = np.random.RandomState(7)
     cases_out = []
     worst = {"block_sparse_matmul": 0.0, "implicit_block_sparse_conv": 0.0}
-    rep = {}
+    # the representative shape of each kernel's summary line: the layer
+    # geometry the main path runs most often (3x3, stride 1, 16 -> 16
+    # channels at 32x32), one group per tile, streamed int8
+    rep_geom = (cfg.image_size, 1, 3, cfg.widths[0], cfg.widths[0])
+    rep, by_mode = {}, {}
     for geom in layer_geometries(cfg):
         for packed in (False, True):
             for mode in ("f32", "int8", "streamed"):
                 case = make_case(geom, packed, mode, batch, N_CU, device, rs)
-                row = {k: case[k] for k in ("name", "packed", "mode", "batch",
-                                            "H", "stride", "k", "cin", "cout")}
-                row["live_tiles"] = int(case["common"]["cnt"].sum())
-                row["pruned_columns"] = int((case["common"]["cnt"] == 0).sum())
-                for kname, run, kern, plain, bkey in (
-                        ("implicit_block_sparse_conv", run_k2,
-                         IC.implicit_block_sparse_conv,
-                         IC.implicit_block_sparse_conv_plain, "bound_k2"),
-                        ("block_sparse_matmul", run_k1, BSM.block_sparse_matmul,
-                         BSM.block_sparse_matmul_plain, "bound_k1")):
-                    got = run(kern, case)
-                    sync(device)
-                    want = run(plain, case)
-                    err = compare(kname, got, want, case)
-                    worst[kname] = max(worst[kname], err)
-                    tag = "k2" if kname.startswith("implicit") else "k1"
-                    row[f"{tag}_max_abs_err"] = err
-                    row[f"{tag}_ms"] = device_ms(lambda: run(kern, case), device, reps)
-                    row[f"{tag}_call_ms"] = time_ms(lambda: run(kern, case), device, reps)
-                    row[f"{tag}_plain_ms"] = time_ms(lambda: run(plain, case),
-                                                     device, plain_reps, warmup=1)
-                    (row[f"{tag}_bound_ms"], row[f"{tag}_bound_by"],
-                     row[f"{tag}_bound_padded_ms"]) = case[bkey]
-                    if isinstance(got, tuple):
-                        row["skipped_steps"] = int(got[1].sum())
-                        row["live_steps"] = int(got[1].shape[0]) * row["live_tiles"]
-                # the representative shape of each kernel's summary line: the
-                # layer geometry the main path runs most often (3x3, stride 1,
-                # 16 -> 16 channels at 32x32), one group per tile, streamed int8
-                is_rep = (geom[1:] == (cfg.image_size, 1, 3, cfg.widths[0], cfg.widths[0])
-                          and not packed and mode == "streamed")
+                is_rep = geom[1:] == rep_geom and not packed and mode == "streamed"
+                case["profile"] = is_rep
+                row = kernel_case_row(case, device, reps, plain_reps, worst)
+                if geom[1:] == rep_geom and not packed:
+                    by_mode[mode] = row
                 if is_rep:
-                    case["profile"] = True
-                    for tag, run, kern in (("k2", run_k2, IC.implicit_block_sparse_conv),
-                                           ("k1", run_k1, BSM.block_sparse_matmul)):
-                        prof = profiler_device_ms(lambda: run(kern, case), device, reps)
-                        row[f"{tag}_profiler_ms"] = None if prof is None else prof["total_ms"]
-                row["library_ms"] = library_ms(case, device, reps)
-                if is_rep:
-                    row["library_profiler_ms"] = case.get("library_profiler_ms")
                     rep = row
                 cases_out.append(row)
+    # serving's bucket 1: the representative geometry at batch 1, both layouts
+    geom = next(g for g in layer_geometries(cfg) if g[1:] == rep_geom)
+    for packed in (False, True):
+        case = make_case(geom, packed, "streamed", 1, N_CU, device, rs)
+        row = kernel_case_row(case, device, reps, plain_reps, worst)
+        by_mode[f"streamed_batch1{'_packed' if packed else ''}"] = row
+        cases_out.append(row)
     emit("kernels", batch=batch, f32_tol=F32_TOL, int8_tol=0.0,
          reps=reps, plain_reps=plain_reps, cases=cases_out)
-    return worst, rep
+    return worst, rep, by_mode
 
 
 # ---------------------------------------------------------------------------
@@ -681,6 +737,7 @@ def phase_timing(servers, buckets, frames, device, reps, card):
                 "frames_per_s": b / (p50 / 1e3),
                 "device_ms": None if prof is None else prof["total_ms"],
                 "device_own_kernels_ms": None if prof is None else prof["kernels_ms"],
+                "device_ms_by_kernel": None if prof is None else prof["by_kernel"],
                 "device_busy_share": None if prof is None else prof["total_ms"] / p50}
         out[label] = per_bucket
     emit("timing", card=card, reps=reps, latency=out)
@@ -1257,10 +1314,13 @@ def phase_quickstart(device):
                                    "hapm_no_dsb": no_dsb.mean_time_per_image_s * 1e3})
 
 
-def kernels_line(paths, worst, rep, rep_gw, rep_i8):
+def kernels_line(paths, worst, rep, rep_gw, rep_i8, by_mode):
     """The ``kernels`` list of the last-but-one line: every ported kernel at
     its representative shape, with its launches on each main path
-    (``paths``: {path: launch counts of its run})."""
+    (``paths``: {path: launch counts of its run}); K2 also gives its
+    instances apart (``by_mode``: the representative geometry unpacked in
+    each mode at the kernels batch, and streamed at batch 1 in both
+    layouts), each beside its bound and the cuDNN yardstick."""
     tag = {"block_sparse_matmul": "k1", "implicit_block_sparse_conv": "k2"}
     shape_keys = ("name", "packed", "batch", "H", "stride", "k", "cin", "cout")
     timing = ("ms", "call_ms", "plain_ms", "bound_ms", "bound_by", "bound_padded_ms",
@@ -1276,6 +1336,11 @@ def kernels_line(paths, worst, rep, rep_gw, rep_i8):
             lines.append({**common, **{k: rep[f"{t}_{k}"] for k in timing[:-1]},
                           "library_ms": rep["library_ms"],
                           "shape": {k: rep[k] for k in (*shape_keys, "mode")}})
+            if t == "k2":
+                lines[-1]["by_mode"] = {
+                    m: {"packed": r["packed"], "batch": r["batch"],
+                        **{k: r[f"k2_{k}"] for k in timing[:-1]},
+                        "library_ms": r["library_ms"]} for m, r in by_mode.items()}
         elif kname == "int8_matmul":
             lines.append({**common, **{k: rep_i8[k] for k in timing},
                           "shape": {k: rep_i8[k] for k in ("shape", "M", "K", "N", "real")}})
@@ -1313,9 +1378,11 @@ def main(argv=None) -> int:
          card=card, device=torch.cuda.get_device_name(0))
 
     _build.load()
+    imma = tensor_core_instances()
     emit("build", seconds=_build.build_seconds, library=os.path.relpath(
-        str(_build.library_path()), ROOT), flags=list(_build.NVCC_FLAGS))
-    worst, rep = phase_kernels(cfg, device, kernel_batch, reps, plain_reps)
+        str(_build.library_path()), ROOT), flags=list(_build.NVCC_FLAGS),
+         k2_int8_imma_instructions=imma)
+    worst, rep, k2_by_mode = phase_kernels(cfg, device, kernel_batch, reps, plain_reps)
     worst["block_sparse_grad_weight"], rep_gw = phase_kernels_grad_weight(
         cfg, device, TRAIN_BATCH, reps, plain_reps)
     worst["int8_matmul"], rep_i8 = phase_kernels_int8_matmul(device, reps, plain_reps)
@@ -1389,7 +1456,8 @@ def main(argv=None) -> int:
 
     emit("done", seconds=time.time() - t_start)
     print(card, flush=True)
-    print(json.dumps({"kernels": kernels_line(paths, worst, rep, rep_gw, rep_i8)}),
+    print(json.dumps({"kernels": kernels_line(paths, worst, rep, rep_gw, rep_i8,
+                                              k2_by_mode)}),
           flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,52 +1,89 @@
 // Implicit-im2col block-sparse convolution for Hopper (sm_90a), forward.
 //
 // Replaces the Pallas TPU kernel `implicit_block_sparse_conv`
-// (src/repro/kernels/implicit_conv.py, body `_kernel`): the same GEMM and
-// epilogue as the block-sparse matmul, but the x operand is the padded NHWC
-// activation left in device memory. For M-block (b, p) and live K-tile t
-// the kernel reads the window
+// (src/repro/kernels/implicit_conv.py:347, body `_kernel`): the same GEMM
+// and epilogue as the block-sparse matmul, but the x operand is the padded
+// NHWC activation left in device memory. For M-block (b, p) and live K-tile
+// t the kernel reads the window
 //     xp[b, r0 : r0+rows, q0 : q0+cols, t*cpk : (t+1)*cpk]
 // and multiplies the patch rows
 //     pt[oh*block_ow + ow, c*slot + dy*ky + dx] = win[oh*stride+dy, ow*stride+dx, c]
 // (zero elsewhere) with the (bk, bn) weight tile. The patch matrix never
-// exists in device memory.
+// exists in device memory. Both instances below share this contract: one
+// thread block per (M-block i, N-tile j), the TPU grid's sequential third
+// axis a loop over the live tiles of column j with the accumulator in
+// registers; a column with cnt[j] == 0 still flushes the epilogue on zeros,
+// and the rows of the M-block past block_oh*block_ow flush the epilogue of
+// a zero accumulator, as in the TPU kernel.
 //
-// What bounds it on this card: bytes. A live step moves one activation
-// window and one weight tile and does at most bm*bk*bn multiply-adds, most
-// of them on lane padding, so the least time the card could take is set by
-// its memory rate, not its arithmetic rate.
+// Activation DSB (int8 codes only): a live step is skipped when the WHOLE
+// staged window of its K-tile's cpk channels is zero (not only the tapped
+// pixels: with stride 2 they differ), uniformly for the block; the
+// accumulator is untouched, so the result is bit-identical; skips[i, j]
+// counts the skipped steps, written by one thread.
 //
-// What the design does about it (right and simple first; tensor cores, TMA
-// and pipelining are not used yet):
-//   * one thread block per (M-block i, N-tile j); the TPU grid's sequential
-//     third axis is a loop over the live tiles of column j inside the block,
-//     accumulator in registers. The TPU version's double-buffered window
-//     DMA becomes a plain staged load; many blocks per SM hide its latency.
-//   * the (rows, cols, cpk) window is staged once per live tile in dynamic
-//     shared memory (converted to the accumulator type) and every tap is
-//     read from the staged copy; the weight tile is staged in 32-row slices
-//     so the block's shared memory is window + 16 KB. Above 48 KB the
-//     launcher asks for the larger carve-out; a window that cannot fit the
-//     card's 227 KB is refused by the Python wrapper before launch.
-//   * weight rows that only meet patch padding (tap >= kx*ky within a
-//     channel slot, channels past cpk) are skipped: they multiply zeros.
-//   * activation_dsb: while staging, every thread notes whether it saw a
-//     non-zero code; one block-wide __syncthreads_or over the WHOLE staged
-//     window (not only the tapped pixels — with stride 2 they differ)
-//     decides, uniformly for the block, to skip the weight staging and the
-//     products of that tile. The accumulator is untouched on a skip, so the
-//     result is bit-identical. count_skips: thread 0 writes the block's skip
-//     count to skips[i, j].
-//   * a column with cnt[j] == 0 still flushes the epilogue on zeros, and the
-//     rows of the M-block past block_oh*block_ow flush the epilogue of a
-//     zero accumulator, as in the TPU kernel.
-//   * sizes are runtime arguments; the only template parameters are the
-//     operand type and the rows per thread (4 x 3 instances in all).
+// int8 codes (`implicit_conv_kernel_imma`, serving and pricing). What bounds
+// it: bytes, once the products are on the tensor cores. A step's products
+// are at most bm*bk*bn int8 multiply-adds, most of them on lane padding (a
+// 3x3 group of 12 filters fills 12 of a tile's 128 lanes and 9 of its 16
+// rows), and the tensor cores do them at 1979 TOP/s; what is left is staging
+// the operands and writing the padded output array. What sets its time on
+// the layers the network runs is neither: it is each block's chain of
+// dependent phases (stage, decide the skips, convert weights, multiply,
+// flush) with a few blocks per SM, so the design removes links of it:
+//   * products on the tensor cores: mma.sync m16n8k32 (s8 x s8 -> s32) per
+//     32-deep K-step, m16n8k16 for a 16-deep one (bk = 16, the unpacked 3x3
+//     layout; bk = 8 is padded to 16). int32 sums are exact in any order, so
+//     the result equals the plain version bit for bit. K-steps whose rows
+//     all lie in patch padding (tap >= kx*ky, channel >= cpk, k >= bk) are
+//     skipped, and so are the n8 tiles past the last one whose weights hold
+//     a nonzero code (the lane padding at the end of a tile). 8 warps: MT
+//     m16 tiles (bm <= 16*MT) by 8/MT warps along N, each warp over 2*MT n8
+//     tiles of the bn <= 128 lanes; at most 128 registers, so that two
+//     blocks share an SM.
+//   * the window is staged once per block with ALL Cp channels (one
+//     contiguous run of cols*Cp bytes per window row, cp.async in 16-byte
+//     chunks where aligned), so a live step stages no activation and reads
+//     its channel slice from shared memory. Every live step's skip is
+//     decided from that copy before the loop, and the loop runs over the
+//     steps that are not skipped. Where all channels do not fit in shared
+//     memory, the block restages the (rows, cols, cpk) slice per live step
+//     and decides the skip then (the slow path of huge windows).
+//   * weights move in units of up to 128 rows: 128 / bk16 whole K-tiles
+//     (eight of the unpacked 3x3 layout's 16-row tiles) or a 128-row part of
+//     a deeper tile. An mma B fragment wants four K-consecutive codes of a
+//     column in one word, but the tile's rows are N-contiguous: each thread
+//     copies 4x4-byte blocks of a unit with cp.async into a raw ring three
+//     units deep, then transposes its own blocks with byte permutes into a
+//     packed buffer (row pitch 136 words: B-fragment loads are conflict-
+//     free), noting which n8 tiles hold a nonzero code. One barrier per
+//     unit; the first unit is requested with the window, before the skips
+//     are known, and again only if a skip changed it.
+//   * A fragments are gathered in registers straight from the staged window
+//     (one byte load per code through a per-block table of the K index's
+//     window offset, four codes packed per word): with one m16 tile per
+//     warp row every code is read once, where an ldmatrix path would first
+//     write the patch tile to shared memory.
+//   * the flush runs the shared `flush_epilogue` on this column's epilogue
+//     rows, staged in shared memory; two adjacent columns go out in one
+//     store (2 bytes of int8 codes or 8 of f32). An n8 tile whose weights
+//     are zero in every unit holds the epilogue of a zero accumulator in
+//     every row, which the block writes in 16-byte stores from a row
+//     computed once.
+//
+// f32 and bf16 operands (`implicit_conv_kernel`, training). What bounds it:
+// its f32 product loop on the CUDA cores (exact f32 FMAs; TF32 would miss
+// the 1e-4 bar). The (rows, cols, cpk) window is staged per live step in the
+// accumulator type and the weight tile in 32-row slices (window + 16 KB of
+// shared memory); each thread owns RM rows x 8 columns of the output tile.
+// Above 48 KB the launcher asks for the larger carve-out; a window that
+// cannot fit the card's 227 KB is refused by the Python wrapper before
+// launch.
 #include "epilogue.cuh"
 
 namespace hapm {
 
-constexpr int kSliceRows = 32;  // weight-tile rows staged at a time
+constexpr int kSliceRows = 32;  // weight-tile rows staged at a time (f32/bf16)
 constexpr int kMaxSharedBytes = 232448;  // 227 KB a block may use on sm_90
 
 struct ConvGeom {
@@ -57,7 +94,14 @@ struct ConvGeom {
   int bm, bk, bn, cpk, slot;
   int rows, cols;         // window shape
   int dsb;                // skip all-zero windows (int8 codes only)
+  int full;               // int8: window staged with all Cp channels once
+  int vec;                // int8: bytes per window copy (16, 8, 4 or 1)
+  int wvec;               // int8: weight rows read 4 bytes at a time
 };
+
+// ---------------------------------------------------------------------------
+// f32 / bf16 operands: CUDA-core product loop
+// ---------------------------------------------------------------------------
 
 template <typename T, typename Acc, int RM>
 __global__ void __launch_bounds__(kThreads)
@@ -157,9 +201,619 @@ implicit_conv_kernel(const T* __restrict__ xp, const T* __restrict__ w,
   flush_tile<T, Acc, RM>(acc, ep, out, out_int8, i, j, g.bm, g.bn, g.n_total, ty, tx);
 }
 
+// ---------------------------------------------------------------------------
+// int8 codes: tensor-core products (mma.sync), staged int8 operands
+// ---------------------------------------------------------------------------
+
+constexpr int kImmaThreads = 256;                 // 8 warps; two blocks an SM
+constexpr int kImmaWarps = kImmaThreads / 32;
+constexpr int kUnitK = 128;                       // weight rows per pipeline unit
+constexpr int kUnitWordRows = kUnitK / 4;         // packed word rows per unit
+constexpr int kBPitch = kMaxBn + 8;               // words per packed row, = 8 mod 32
+constexpr int kBufWords = kUnitWordRows * kBPitch;
+constexpr int kWBlocks = kUnitWordRows * (kMaxBn / 4) / kImmaThreads;  // 4x4 blocks a thread moves
+constexpr int kStages = 3;                        // weight units in flight (raw ring)
+// static shared memory: the epilogue rows, the zero-accumulator row (f32
+// and codes) and three n8 masks
+constexpr int kImmaStaticBytes = 4 * kMaxBn * 4 + kMaxBn + 16;
+
+__host__ __device__ inline size_t align16(size_t n) { return (n + 15) & ~static_cast<size_t>(15); }
+
+// A pipeline unit is up to 128 weight rows: 128 / bk16 whole K-tiles (bk16 =
+// bk rounded up to 16) when the window holds all channels, else one K-tile,
+// or one 128-row part of a K-tile deeper than 128 rows.
+struct UnitShape {
+  int upt, tpu, rows;  // units per K-tile, K-tiles per unit, rows of a full unit
+};
+
+__host__ __device__ inline UnitShape unit_shape(const ConvGeom& g, int full) {
+  UnitShape x;
+  const int bk16 = (g.bk + 15) / 16 * 16;
+  x.upt = (bk16 + kUnitK - 1) / kUnitK;
+  x.tpu = (full && x.upt == 1) ? kUnitK / bk16 : 1;
+  x.rows = bk16 * x.tpu < kUnitK ? bk16 * x.tpu : kUnitK;
+  return x;
+}
+
+// Unit u of the run list: entries [s0, s0 + ns), rows [lo, lo + rt) of each.
+struct Unit {
+  int s0, ns, lo, rt;
+};
+
+__device__ __forceinline__ Unit unit_at(int u, const UnitShape& us, int bk16, int n_run) {
+  Unit x;
+  if (us.upt > 1) {
+    x.s0 = u / us.upt;
+    x.ns = 1;
+    x.lo = (u % us.upt) * kUnitK;
+    x.rt = min(kUnitK, bk16 - x.lo);
+  } else {
+    x.s0 = u * us.tpu;
+    x.ns = min(us.tpu, n_run - x.s0);
+    x.lo = 0;
+    x.rt = bk16;
+  }
+  return x;
+}
+
+// Byte offsets of the int8 kernel's dynamic shared memory: the two packed
+// weight buffers, the raw ring of weight units in flight, the K index ->
+// window offset table, the 16-row liveness flags, the column's live tiles,
+// their nonzero flags and the list of those that run, and the window (all
+// Cp channels when g.full, else one K-tile's cpk channels).
+struct ImmaSmem {
+  size_t raw, stage, woff, live16, lst, nz, run, win, total;
+};
+
+__host__ __device__ inline ImmaSmem imma_smem(const ConvGeom& g, int full) {
+  const size_t bk16 = (g.bk + 15) / 16 * 16;
+  ImmaSmem s;
+  size_t o = static_cast<size_t>(2) * kBufWords * 4;
+  s.raw = o;
+  s.stage = static_cast<size_t>(unit_shape(g, full).rows) * kMaxBn;  // bytes of one raw unit
+  o += kStages * s.stage;
+  s.woff = o;
+  o += align16(bk16 * 4);
+  s.live16 = o;
+  o += align16(bk16 / 16 * 4);
+  s.lst = o;
+  o += align16(static_cast<size_t>(g.max_nnz) * 4);
+  s.nz = o;
+  o += align16(static_cast<size_t>(g.max_nnz) * 4);
+  s.run = o;
+  o += align16(static_cast<size_t>(g.max_nnz) * 4);
+  s.win = o;
+  o += align16(static_cast<size_t>(g.rows) * g.cols * (full ? g.Cp : g.cpk));
+  s.total = o;
+  return s;
+}
+
+__device__ __forceinline__ void mma_k32(int (&c)[4], int a0, int a1, int a2, int a3, int b0,
+                                        int b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ void mma_k16(int (&c)[4], int a0, int a1, int b0) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.s32.s8.s8.s32 "
+      "{%0,%1,%2,%3}, {%4,%5}, {%6}, {%0,%1,%2,%3};\n"
+      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
+      : "r"(a0), "r"(a1), "r"(b0));
+}
+
+template <int V>
+__device__ __forceinline__ void cp_async(void* dst, const void* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(s), "l"(src), "n"(V));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  cp_async_commit();
+  cp_async_wait<0>();
+}
+
+// Copy `rows` window rows of `segs` runs of `len` contiguous bytes each
+// (run s of row r starts at src_row(r) + s*Cp) into win, V bytes a copy.
+template <int V>
+__device__ __forceinline__ void copy_window(int8_t* win, const int8_t* src, size_t row_pitch,
+                                            int rows, int segs, int len, int Cp, int tid) {
+  const int per_seg = len / V;
+  const int per_row = segs * per_seg;
+  for (int e = tid; e < rows * per_row; e += kImmaThreads) {
+    const int r = e / per_row;
+    const int rem = e - r * per_row;
+    const int s = rem / per_seg;
+    const int o = (rem - s * per_seg) * V;
+    const int8_t* from = src + r * row_pitch + static_cast<size_t>(s) * Cp + o;
+    int8_t* to = win + (static_cast<size_t>(r) * segs + s) * len + o;
+    if constexpr (V == 1) {
+      *to = *from;
+    } else {
+      cp_async<V>(to, from);
+    }
+  }
+}
+
+// Request channels [c_lo, c_lo + wc) of the M-block's window (cp.async, or
+// plain byte copies where no 4-byte chunk is aligned); when wc == Cp each
+// window row is one contiguous run of cols*Cp bytes. The caller waits.
+__device__ __forceinline__ void load_window(int8_t* win, const int8_t* __restrict__ xp,
+                                             const ConvGeom& g, int b, int r0, int q0, int c_lo,
+                                             int wc, int tid) {
+  const int8_t* src =
+      xp + ((static_cast<size_t>(b) * g.Hp + r0) * g.Wp + q0) * g.Cp + c_lo;
+  const size_t pitch = static_cast<size_t>(g.Wp) * g.Cp;
+  const int segs = wc == g.Cp ? 1 : g.cols;
+  const int len = wc == g.Cp ? g.cols * g.Cp : wc;
+  switch (g.vec) {
+    case 16: copy_window<16>(win, src, pitch, g.rows, segs, len, g.Cp, tid); break;
+    case 8: copy_window<8>(win, src, pitch, g.rows, segs, len, g.Cp, tid); break;
+    case 4: copy_window<4>(win, src, pitch, g.rows, segs, len, g.Cp, tid); break;
+    default: copy_window<1>(win, src, pitch, g.rows, segs, len, g.Cp, tid);
+  }
+}
+
+// Copy this thread's 4x4-byte blocks of unit x (K-tiles list[x.s0 ..], rows
+// [x.lo, x.lo + x.rt) of each, columns [j*bn, j*bn + bn)) into its 16 bytes
+// per block of a raw stage (row r of a block at byte 4r); zero past bk and
+// bn. Only the thread that copies a block reads it back (convert_unit), so
+// the copy needs no barrier, only cp.async.wait_group.
+__device__ __forceinline__ void load_unit(int8_t* stage, const int8_t* __restrict__ w,
+                                           const ConvGeom& g, int j, const int* list, Unit x,
+                                           int tid) {
+#pragma unroll
+  for (int q = 0; q < kWBlocks; ++q) {
+    const int blk = tid + kImmaThreads * q;
+    const int kb = blk / (kMaxBn / 4);
+    if (kb * 4 >= x.ns * x.rt) break;
+    const int slot = kb * 4 / x.rt;
+    const int k = x.lo + kb * 4 - slot * x.rt;
+    const int tile = min(max(list[x.s0 + slot], 0), g.Cp / g.cpk - 1);  // in range if unused
+    const int n = (blk % (kMaxBn / 4)) * 4;
+    int8_t* dst = stage + blk * 16;
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const int8_t* p =
+          w + (static_cast<size_t>(tile) * g.bk + k + r) * g.n_total + j * g.bn + n;
+      const bool in = k + r < g.bk && n < g.bn;
+      if (in && g.wvec) {
+        cp_async<4>(dst + 4 * r, p);
+      } else {
+        int v = 0;
+        if (in)
+#pragma unroll
+          for (int c = 0; c < 4; ++c)
+            if (n + c < g.bn) v |= static_cast<int>(static_cast<uint8_t>(p[c])) << (8 * c);
+        *reinterpret_cast<int*>(dst + 4 * r) = v;
+      }
+    }
+  }
+}
+
+// Transpose each of this thread's 4x4 blocks among the first `rows` rows of
+// a landed raw stage (4 rows of 4 column bytes) into 4 words of 4
+// K-consecutive codes (lowest K in the lowest byte) and store them into a
+// packed buffer; OR into *n8_mask the n8 tiles (8-column groups) that hold a
+// nonzero code.
+__device__ __forceinline__ void convert_unit(const int8_t* stage, int* buf, unsigned* n8_mask,
+                                             int rows, int tid) {
+#pragma unroll
+  for (int q = 0; q < kWBlocks; ++q) {
+    const int blk = tid + kImmaThreads * q;
+    const int kw = blk / (kMaxBn / 4);
+    if (kw * 4 >= rows) break;
+    const int n = (blk % (kMaxBn / 4)) * 4;
+    const int4 r = *reinterpret_cast<const int4*>(stage + blk * 16);
+    const unsigned lo01 = __byte_perm(r.x, r.y, 0x5140);
+    const unsigned lo23 = __byte_perm(r.z, r.w, 0x5140);
+    const unsigned hi01 = __byte_perm(r.x, r.y, 0x7362);
+    const unsigned hi23 = __byte_perm(r.z, r.w, 0x7362);
+    int4 v;
+    v.x = __byte_perm(lo01, lo23, 0x5410);
+    v.y = __byte_perm(lo01, lo23, 0x7632);
+    v.z = __byte_perm(hi01, hi23, 0x5410);
+    v.w = __byte_perm(hi01, hi23, 0x7632);
+    *reinterpret_cast<int4*>(buf + kw * kBPitch + n) = v;
+    // a warp's 32 blocks share one word row and span all 16 n8 tiles
+    const unsigned m = __reduce_or_sync(0xffffffffu, (v.x | v.y | v.z | v.w) ? 1u << (n / 8) : 0u);
+    if ((tid & 31) == 0 && m != 0) atomicOr(n8_mask, m);
+  }
+}
+
+// Four codes of one patch row: win[off + wo.{x,y,z,w}], zero where the
+// table marks padding (-1) or the row is past the block's pixels.
+__device__ __forceinline__ int gather4(const int8_t* win, bool valid, int off, int4 wo) {
+  if (!valid) return 0;
+  const int8_t* p = win + off;
+  const unsigned b0 = wo.x >= 0 ? static_cast<uint8_t>(p[wo.x]) : 0u;
+  const unsigned b1 = wo.y >= 0 ? static_cast<uint8_t>(p[wo.y]) : 0u;
+  const unsigned b2 = wo.z >= 0 ? static_cast<uint8_t>(p[wo.z]) : 0u;
+  const unsigned b3 = wo.w >= 0 ? static_cast<uint8_t>(p[wo.w]) : 0u;
+  return static_cast<int>(b0 | (b1 << 8) | (b2 << 16) | (b3 << 24));
+}
+
+// Flush a thread's accumulator fragments: for n8 tile n (skipped where bit n
+// of `skip` is set), columns c0 + 8n and c0 + 8n + 1 (c0 = 2*tq) of rows
+// row0 and row0 + 8 rows, each value through the shared epilogue, the two
+// columns written with one store (2 bytes of int8 codes or 8 of f32) where
+// both are in the tile and aligned.
+template <bool I8OUT, int NTW>
+__device__ __forceinline__ void flush_frags(const int (&acc)[NTW][4], const Epilogue& ep,
+                                            void* out, size_t row0, int n_total, int rows_left,
+                                            int c0, int bn, unsigned skip) {
+#pragma unroll
+  for (int n = 0; n < NTW; ++n) {
+    const int c = c0 + 8 * n;
+    if (c >= bn) break;
+    if ((skip >> n) & 1u) continue;
+    const bool second = c + 1 < bn;
+    float v[2][2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      v[h][0] = flush_epilogue<int>(acc[n][2 * h], ep, c);
+      v[h][1] = second ? flush_epilogue<int>(acc[n][2 * h + 1], ep, c + 1) : 0.0f;
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      if (rows_left <= 8 * h) break;
+      const size_t o = row0 + static_cast<size_t>(8 * h) * n_total + c;
+      if (second && o % 2 == 0) {
+        if constexpr (I8OUT) {
+          const unsigned short pair = static_cast<unsigned short>(
+              static_cast<uint8_t>(static_cast<int8_t>(v[h][0])) |
+              (static_cast<uint8_t>(static_cast<int8_t>(v[h][1])) << 8));
+          *reinterpret_cast<unsigned short*>(static_cast<int8_t*>(out) + o) = pair;
+        } else {
+          *reinterpret_cast<float2*>(static_cast<float*>(out) + o) = make_float2(v[h][0], v[h][1]);
+        }
+      } else {
+        store_out<int8_t>(out, o, v[h][0], I8OUT);
+        if (second) store_out<int8_t>(out, o + 1, v[h][1], I8OUT);
+      }
+    }
+  }
+}
+
+template <int MT>
+__global__ void __launch_bounds__(kImmaThreads, 2)
+implicit_conv_kernel_imma(const int8_t* __restrict__ xp, const int8_t* __restrict__ w,
+                          const int* __restrict__ idx, const int* __restrict__ cnt, Epilogue ep,
+                          void* __restrict__ out, int out_int8, int* __restrict__ skips,
+                          ConvGeom g) {
+  constexpr int WN = kImmaWarps / MT;  // warps along N per m16 tile
+  constexpr int NTW = 16 / WN;  // n8 tiles per warp
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __shared__ unsigned s_n8[3];                  // per packed unit: n8 tiles with a nonzero code
+  __shared__ float s_rows[3][kMaxBn];           // this column's scale, bias, out_scale
+  __shared__ __align__(16) float s_z[kMaxBn];   // epilogue of a zero accumulator
+  __shared__ __align__(16) int8_t s_z8[kMaxBn];  // the same as int8 codes
+  const ImmaSmem L = imma_smem(g, g.full);
+  const UnitShape us = unit_shape(g, g.full);
+  int* bufs = reinterpret_cast<int*>(smem_raw);
+  int8_t* raw = reinterpret_cast<int8_t*>(smem_raw + L.raw);
+  int* woff = reinterpret_cast<int*>(smem_raw + L.woff);
+  int* live16 = reinterpret_cast<int*>(smem_raw + L.live16);
+  int* lst = reinterpret_cast<int*>(smem_raw + L.lst);
+  int* nz = reinterpret_cast<int*>(smem_raw + L.nz);
+  int* run = reinterpret_cast<int*>(smem_raw + L.run);
+  int8_t* win = reinterpret_cast<int8_t*>(smem_raw + L.win);
+
+  const int n_cols = g.n_total / g.bn;
+  const int i = blockIdx.x;
+  const int j = blockIdx.y;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int gq = lane >> 2;  // mma groupID
+  const int tq = lane & 3;   // mma thread in group
+
+  const int b = i / g.bpi;
+  const int p = i % g.bpi;
+  const int r0 = (p / g.spi) * g.block_oh * g.stride;
+  const int q0 = (p % g.spi) * g.block_ow * g.stride;
+  const int n_pix = g.block_oh * g.block_ow;
+  const int kxky = g.kx * g.ky;
+  const int wc = g.full ? g.Cp : g.cpk;  // window bytes per pixel
+  const int bk16 = (g.bk + 15) / 16 * 16;
+  const int live = cnt[j];
+  const int* idx_j = idx + static_cast<size_t>(j) * g.max_nnz;
+  const bool compact = g.full && g.dsb;
+
+  // requested first, in flight together: the window (all channels), the
+  // weights of the column's first unit of tiles (from the table's first
+  // entries, read beside the live count), the tile list and the epilogue
+  // rows; an empty column stages nothing
+  int first[kUnitK / 16];
+#pragma unroll
+  for (int q = 0; q < kUnitK / 16; ++q) first[q] = q < us.tpu && q < g.max_nnz ? idx_j[q] : 0;
+  if (live > 0) {
+    if (g.full) load_window(win, xp, g, b, r0, q0, 0, g.Cp, tid);
+    load_unit(raw, w, g, j, first, unit_at(0, us, bk16, min(live, us.tpu)), tid);
+  }
+  for (int s = tid; s < live; s += kImmaThreads) lst[s] = idx_j[s];
+  for (int c = tid; c < g.bn; c += kImmaThreads) {
+    const int n = j * g.bn + c;
+    s_rows[0][c] = ep.scale != nullptr ? ep.scale[n] : 0.0f;
+    s_rows[1][c] = ep.bias != nullptr ? ep.bias[n] : 0.0f;
+    s_rows[2][c] = ep.out_scale != nullptr ? ep.out_scale[n] : 0.0f;
+  }
+  // K index -> window offset of its (channel, tap), -1 on patch padding;
+  // which 16-row K groups hold any real row
+  for (int k0 = 0; k0 < bk16; k0 += kImmaThreads) {
+    const int k = k0 + tid;
+    int wo = -1;
+    if (k < bk16) {
+      const int ch = k / g.slot;
+      const int tap = k - ch * g.slot;
+      if (k < g.bk && tap < kxky && ch < g.cpk)
+        wo = ((tap / g.ky) * g.cols + (tap % g.ky)) * wc + ch;
+      woff[k] = wo;
+    }
+    const unsigned m = __ballot_sync(0xffffffffu, wo >= 0);
+    if (lane == 0 && k < bk16) {
+      live16[k / 16] = (m & 0xffffu) != 0;
+      if (k + 16 < bk16) live16[k / 16 + 1] = (m >> 16) != 0;
+    }
+  }
+  if (tid < 3) s_n8[tid] = 0;
+  cp_async_wait_all();
+  __syncthreads();
+
+  // the epilogue on this column's rows in shared memory, and its value on a
+  // zero accumulator (the output of every n8 tile no product reaches)
+  const Epilogue eps{ep.scale != nullptr ? s_rows[0] : nullptr,
+                     ep.bias != nullptr ? s_rows[1] : nullptr,
+                     ep.out_scale != nullptr ? s_rows[2] : nullptr, ep.relu};
+  for (int c = tid; c < g.bn; c += kImmaThreads) {
+    const float z = flush_epilogue<int>(0, eps, c);
+    s_z[c] = z;
+    s_z8[c] = ep.out_scale != nullptr ? static_cast<int8_t>(z) : 0;
+  }
+
+  int n_run = live;
+  if (compact && live > 0) {
+    // skip flag of every live step from the staged window (the whole window
+    // of its K-tile's cpk channels), one warp per step; then every warp
+    // forms the same list of the steps that run, in ascending order
+    const int slice = g.rows * g.cols * g.cpk;
+    for (int s = warp; s < live; s += kImmaWarps) {
+      const int cb = lst[s] * g.cpk;
+      int hit = 0;
+      for (int e0 = 0; e0 < slice; e0 += 32) {
+        const int e = e0 + lane;
+        if (e < slice) {
+          const int px = e / g.cpk;
+          hit |= win[px * wc + cb + (e - px * g.cpk)] != 0;
+        }
+        if (__any_sync(0xffffffffu, hit)) {
+          hit = 1;
+          break;
+        }
+      }
+      if (lane == 0) nz[s] = hit;
+    }
+    __syncthreads();
+    n_run = 0;
+    for (int s0 = 0; s0 < live; s0 += 32) {
+      const int s = s0 + lane;
+      const bool keep = s < live && nz[s] != 0;
+      const unsigned m = __ballot_sync(0xffffffffu, keep);
+      if (keep) run[n_run + __popc(m & ((1u << lane) - 1u))] = lst[s];  // same in every warp
+      n_run += __popc(m);
+    }
+    __syncwarp();
+  }
+  if (!compact) run = lst;
+  int skipped = live - n_run;
+  const int n_units = us.upt > 1 ? n_run * us.upt : (n_run + us.tpu - 1) / us.tpu;
+
+  // output rows of this thread's two fragment rows, and their window offsets
+  const int mt = warp / WN;
+  const int nt0 = (warp % WN) * NTW;
+  bool valid[2];
+  int off[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int m = mt * 16 + gq + 8 * h;
+    valid[h] = m < n_pix;
+    const int oh = m / g.block_ow;
+    const int ow = m % g.block_ow;
+    off[h] = valid[h] ? ((oh * g.stride) * g.cols + ow * g.stride) * wc : 0;
+  }
+  // a K-tile of one 16- or 32-deep step (bk16 = 16 or 32) reads the same
+  // table entries at every step
+  const int4 h_wa = *reinterpret_cast<const int4*>(woff + 4 * tq);
+  const int4 h_wb = bk16 >= 32 ? *reinterpret_cast<const int4*>(woff + 16 + 4 * tq)
+                               : make_int4(-1, -1, -1, -1);
+  const bool h_live = bk16 == 16 ? live16[0] != 0 : (bk16 == 32 && (live16[0] | live16[1]));
+
+  int acc[NTW][4];
+#pragma unroll
+  for (int n = 0; n < NTW; ++n)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) acc[n][c] = 0;
+
+  // weight pipeline: unit u sits in raw stage u % kStages; units 1 ..
+  // kStages-1 are requested now (one cp.async group each, empty past the
+  // last unit), unit 0 has landed (requested from the table's first entries
+  // before the skips were known; again if a skip changed them)
+  if (n_units > 0) {
+    const Unit x0 = unit_at(0, us, bk16, n_run);
+    bool same = true;
+    if (compact)
+      for (int q = 0; q < x0.ns; ++q) same &= nz[q] != 0;
+    if (!same) {
+      load_unit(raw, w, g, j, run, x0, tid);
+      cp_async_wait_all();
+    }
+    convert_unit(raw, bufs, &s_n8[0], x0.ns * x0.rt, tid);
+  }
+#pragma unroll
+  for (int v = 1; v < kStages; ++v) {
+    if (v < n_units) load_unit(raw + v * L.stage, w, g, j, run, unit_at(v, us, bk16, n_run), tid);
+    cp_async_commit();
+  }
+  __syncthreads();
+
+  auto step32 = [&](const int* buf, int kw, unsigned n8, const int8_t* wn, int4 wa, int4 wb) {
+    const int n_hi = 32 - __clz(n8 & ((1u << NTW) - 1u));
+    const int a0 = gather4(wn, valid[0], off[0], wa);
+    const int a1 = gather4(wn, valid[1], off[1], wa);
+    const int a2 = gather4(wn, valid[0], off[0], wb);
+    const int a3 = gather4(wn, valid[1], off[1], wb);
+#pragma unroll
+    for (int n = 0; n < NTW; ++n) {
+      const int col = (nt0 + n) * 8 + gq;
+      if (n >= n_hi) break;
+      mma_k32(acc[n], a0, a1, a2, a3, buf[kw * kBPitch + col], buf[(kw + 4) * kBPitch + col]);
+    }
+  };
+  auto step16 = [&](const int* buf, int kw, unsigned n8, const int8_t* wn, int4 wa) {
+    const int n_hi = 32 - __clz(n8 & ((1u << NTW) - 1u));
+    const int a0 = gather4(wn, valid[0], off[0], wa);
+    const int a1 = gather4(wn, valid[1], off[1], wa);
+#pragma unroll
+    for (int n = 0; n < NTW; ++n) {
+      const int col = (nt0 + n) * 8 + gq;
+      if (n >= n_hi) break;
+      mma_k16(acc[n], a0, a1, buf[kw * kBPitch + col]);
+    }
+  };
+
+  unsigned any_n8 = 0;  // n8 tiles whose weights hold a nonzero code
+  bool tile_on = true;
+  for (int u = 0; u < n_units; ++u) {
+    const Unit x = unit_at(u, us, bk16, n_run);
+    if (!g.full && x.lo == 0) {
+      // slow path (one K-tile per unit): this step's (rows, cols, cpk)
+      // window, and its skip
+      load_window(win, xp, g, b, r0, q0, run[x.s0] * g.cpk, g.cpk, tid);
+      cp_async_wait_all();
+      __syncthreads();
+      if (g.dsb) {
+        int hit = 0;
+        const int slice = g.rows * g.cols * g.cpk;
+        for (int e = tid; e < slice && !hit; e += kImmaThreads) hit = win[e] != 0;
+        tile_on = __syncthreads_or(hit) != 0;
+        skipped += tile_on ? 0 : 1;
+      }
+    }
+    // products only up to the last n8 tile whose weights hold a nonzero code
+    // (lane padding multiplies zeros); a unit's mask is cleared two units
+    // before it is written again
+    const unsigned n8_unit = s_n8[u % 3];
+    const unsigned n8 = n8_unit >> nt0;
+    if (tid == 0) s_n8[(u + 2) % 3] = 0;
+    any_n8 |= n8_unit;
+    if (tile_on && (n8 & ((1u << NTW) - 1u)) != 0) {
+      const int* buf = bufs + (u & 1) * kBufWords;
+      for (int q = 0; q < x.ns; ++q) {
+        const int8_t* wn = win + (g.full ? run[x.s0 + q] * g.cpk : 0);
+        const int kq = q * x.rt;  // the K-tile's first row in the unit
+        if (bk16 == 16) {
+          if (h_live) step16(buf, kq / 4 + tq, n8, wn, h_wa);
+        } else if (bk16 == 32) {
+          if (h_live) step32(buf, kq / 4 + tq, n8, wn, h_wa, h_wb);
+        } else {
+          for (int k = x.lo; k < x.lo + x.rt;) {
+            const int kw = (kq + k - x.lo) / 4 + tq;
+            if (x.lo + x.rt - k >= 32) {
+              if (live16[k / 16] | live16[k / 16 + 1])
+                step32(buf, kw, n8, wn, *reinterpret_cast<const int4*>(woff + k + 4 * tq),
+                       *reinterpret_cast<const int4*>(woff + k + 16 + 4 * tq));
+              k += 32;
+            } else {
+              if (live16[k / 16])
+                step16(buf, kw, n8, wn, *reinterpret_cast<const int4*>(woff + k + 4 * tq));
+              k += 16;
+            }
+          }
+        }
+      }
+    }
+    if (u + 1 < n_units) {
+      // unit u+1 has landed (all but the newest kStages-2 groups); the
+      // packed buffer it goes to was last read by unit u-1, which every
+      // warp finished before the barrier one iteration ago
+      cp_async_wait<kStages - 2>();
+      const Unit x1 = unit_at(u + 1, us, bk16, n_run);
+      convert_unit(raw + ((u + 1) % kStages) * L.stage, bufs + ((u + 1) & 1) * kBufWords,
+                   &s_n8[(u + 1) % 3], x1.ns * x1.rt, tid);
+    }
+    const int v = u + kStages;  // into the raw stage unit u has left
+    if (v < n_units)
+      load_unit(raw + (u % kStages) * L.stage, w, g, j, run, unit_at(v, us, bk16, n_run), tid);
+    cp_async_commit();
+    __syncthreads();
+  }
+  if (skips != nullptr && tid == 0) skips[i * n_cols + j] = skipped;
+
+  // flush. The n8 tiles whose weights are zero in every unit hold the
+  // zero-accumulator row in every row: where the output rows allow 16-byte
+  // stores, the block writes them from s_z / s_z8 (16 codes or 4 floats a
+  // store); every other tile goes through the fragments: rows gq and
+  // gq + 8, columns 2*tq and 2*tq + 1 of each n8 tile.
+  const int n8_count = (g.bn + 7) / 8;
+  const unsigned dead = ~any_n8 & ((1u << n8_count) - 1u);
+  unsigned skip = 0;
+  if (out_int8 ? (g.bn % 16 == 0 && g.n_total % 16 == 0) : (g.bn % 4 == 0 && g.n_total % 4 == 0))
+    skip = out_int8 ? ((dead & (dead >> 1)) & 0x5555u) * 3u : dead;
+  if (skip != 0) {
+    const int per = out_int8 ? g.bn / 16 : g.bn / 4;  // 16-byte chunks per row
+    for (int e = tid; e < g.bm * per; e += kImmaThreads) {
+      const int r = e / per;
+      const int ch = e - r * per;
+      if (!((skip >> (out_int8 ? 2 * ch : ch / 2)) & 1u)) continue;
+      const size_t o = (static_cast<size_t>(i) * g.bm + r) * g.n_total + j * g.bn;
+      if (out_int8) {
+        *reinterpret_cast<int4*>(static_cast<int8_t*>(out) + o + 16 * ch) =
+            *reinterpret_cast<const int4*>(s_z8 + 16 * ch);
+      } else {
+        *reinterpret_cast<float4*>(static_cast<float*>(out) + o + 4 * ch) =
+            *reinterpret_cast<const float4*>(s_z + 4 * ch);
+      }
+    }
+  }
+
+  const size_t row0 = (static_cast<size_t>(i) * g.bm + mt * 16 + gq) * g.n_total + j * g.bn;
+  const int rows_left = g.bm - (mt * 16 + gq);  // rows gq (+8) exist while > 0 (> 8)
+  if (out_int8) {
+    flush_frags<true, NTW>(acc, eps, out, row0, g.n_total, rows_left, nt0 * 8 + 2 * tq, g.bn,
+                           skip >> nt0);
+  } else {
+    flush_frags<false, NTW>(acc, eps, out, row0, g.n_total, rows_left, nt0 * 8 + 2 * tq, g.bn,
+                            skip >> nt0);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// launchers
+// ---------------------------------------------------------------------------
+
 static size_t shared_bytes(const ConvGeom& g) {
   const size_t win_elems = static_cast<size_t>(g.rows) * g.cols * g.cpk;
   return (((win_elems + 3) / 4) * 4 + static_cast<size_t>(kSliceRows) * kMaxBn) * 4;
+}
+
+template <typename Kernel>
+static cudaError_t allow_shared(Kernel kernel, size_t smem) {
+  // above 48 KB a launch is refused unless the carve-out was asked for
+  if (smem <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(smem));
 }
 
 template <typename T, typename Acc, int RM>
@@ -168,12 +822,8 @@ static cudaError_t launch_rm(const void* xp, const void* w, const int* idx, cons
                              const ConvGeom& g, cudaStream_t stream) {
   auto kernel = implicit_conv_kernel<T, Acc, RM>;
   const size_t smem = shared_bytes(g);
-  if (smem > 48 * 1024) {
-    // above 48 KB a launch is refused unless the carve-out was asked for
-    cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                           static_cast<int>(smem));
-    if (err != cudaSuccess) return err;
-  }
+  cudaError_t err = allow_shared(kernel, smem);
+  if (err != cudaSuccess) return err;
   const dim3 grid(n_blocks, g.n_total / g.bn);
   kernel<<<grid, dim3(kThreads), smem, stream>>>(static_cast<const T*>(xp),
                                                  static_cast<const T*>(w), idx, cnt, ep, out,
@@ -192,6 +842,47 @@ static cudaError_t launch(const void* xp, const void* w, const int* idx, const i
   if (g.bm <= 64)
     return launch_rm<T, Acc, 4>(xp, w, idx, cnt, ep, out, out_int8, skips, n_blocks, g, stream);
   return launch_rm<T, Acc, 8>(xp, w, idx, cnt, ep, out, out_int8, skips, n_blocks, g, stream);
+}
+
+template <int MT>
+static cudaError_t launch_imma_mt(const void* xp, const void* w, const int* idx, const int* cnt,
+                                  const Epilogue& ep, void* out, int out_int8, int* skips,
+                                  int n_blocks, const ConvGeom& g, cudaStream_t stream) {
+  auto kernel = implicit_conv_kernel_imma<MT>;
+  const size_t smem = imma_smem(g, g.full).total;
+  cudaError_t err = allow_shared(kernel, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(n_blocks, g.n_total / g.bn);
+  kernel<<<grid, dim3(kImmaThreads), smem, stream>>>(static_cast<const int8_t*>(xp),
+                                                 static_cast<const int8_t*>(w), idx, cnt, ep, out,
+                                                 out_int8, skips, g);
+  return cudaGetLastError();
+}
+
+static int largest_copy(uintptr_t ptr, int Cp, int wc) {
+  const int sizes[3] = {16, 8, 4};
+  for (int v : sizes)
+    if (ptr % v == 0 && Cp % v == 0 && wc % v == 0) return v;
+  return 1;
+}
+
+static cudaError_t launch_imma(const void* xp, const void* w, const int* idx, const int* cnt,
+                               const Epilogue& ep, void* out, int out_int8, int* skips,
+                               int n_blocks, ConvGeom g, cudaStream_t stream) {
+  // all channels of the window at once where they fit, else one K-tile's
+  // (the kernel's static shared memory holds the epilogue rows)
+  const size_t budget = kMaxSharedBytes - kImmaStaticBytes;
+  g.full = imma_smem(g, 1).total <= budget ? 1 : 0;
+  if (imma_smem(g, g.full).total > budget) return cudaErrorInvalidValue;
+  g.vec = largest_copy(reinterpret_cast<uintptr_t>(xp), g.Cp, g.full ? g.Cp : g.cpk);
+  g.wvec = (reinterpret_cast<uintptr_t>(w) % 4 == 0 && g.n_total % 4 == 0 && g.bn % 4 == 0);
+  if (g.bm <= 16)
+    return launch_imma_mt<1>(xp, w, idx, cnt, ep, out, out_int8, skips, n_blocks, g, stream);
+  if (g.bm <= 32)
+    return launch_imma_mt<2>(xp, w, idx, cnt, ep, out, out_int8, skips, n_blocks, g, stream);
+  if (g.bm <= 64)
+    return launch_imma_mt<4>(xp, w, idx, cnt, ep, out, out_int8, skips, n_blocks, g, stream);
+  return launch_imma_mt<8>(xp, w, idx, cnt, ep, out, out_int8, skips, n_blocks, g, stream);
 }
 
 }  // namespace hapm
@@ -218,6 +909,7 @@ extern "C" int hapm_implicit_block_sparse_conv(
   g.rows = (block_oh - 1) * stride + kx;
   g.cols = (block_ow - 1) * stride + ky;
   g.dsb = dsb;
+  g.full = g.vec = g.wvec = 0;
   if (bm < 1 || bm > kTy * 8 || bn < 1 || bn > kMaxBn || n_total % bn || Cp % cpk || slot < 1 ||
       block_oh * block_ow > bm || (dsb && dtype != kI8) ||
       shared_bytes(g) > static_cast<size_t>(kMaxSharedBytes))
@@ -235,7 +927,7 @@ extern "C" int hapm_implicit_block_sparse_conv(
       err = launch<__nv_bfloat16, float>(xp, w, idx, cnt, ep, out, out_int8, skips, n_blocks, g, st);
       break;
     case kI8:
-      err = launch<int8_t, int>(xp, w, idx, cnt, ep, out, out_int8, skips, n_blocks, g, st);
+      err = launch_imma(xp, w, idx, cnt, ep, out, out_int8, skips, n_blocks, g, st);
       break;
     default:
       err = cudaErrorInvalidValue;

@@ -35,7 +35,12 @@ Two implementations of the one function live here:
 
 - :func:`implicit_block_sparse_conv` — the wrapper. For a CUDA tensor it
   launches the hand-written kernel ``csrc/implicit_conv.cu`` (or raises);
-  for a CPU tensor, and only then, it runs the plain version.
+  for a CPU tensor, and only then, it runs the plain version. The kernel
+  has two instances: int8 codes multiply on the tensor cores (``mma.sync``,
+  exact int32 sums) from a window staged once per block as int8 with all
+  its channels, and decide every step's activation skip from that copy
+  before the product loop; f32 and bf16 operands keep an exact-FMA product
+  loop on the CUDA cores with the window restaged per live step.
 - :func:`implicit_block_sparse_conv_plain` — the same function in plain
   PyTorch on the same packed operands and tables; the CPU path and the
   yardstick the kernel is held to on the card.
@@ -128,9 +133,11 @@ def window_shape(mb: MBlock, kx: int, ky: int, stride: int) -> Tuple[int, int]:
 
 
 def window_fits_card(rows: int, cols: int, cpk: int) -> bool:
-    """Whether the CUDA kernel's block can stage this window: it holds the
-    window in the 4-byte accumulator type plus one weight slice in the
-    card's shared memory. The second condition beside
+    """Whether the CUDA kernel's block can stage this window: the f32/bf16
+    instance holds it in the 4-byte accumulator type plus one weight slice
+    in the card's shared memory (the int8 instance holds it as bytes beside
+    82 KB of weight buffers, which fits wherever this does). The second
+    condition beside
     :data:`SLAB_VMEM_BUDGET`; a window that fails it takes the
     materializing path."""
     win = _ceil_to(rows * cols * cpk, 4) * 4

@@ -2,7 +2,13 @@
 shapes the smoke run does not reach: every rows-per-thread instance
 (bm 8 ... 128), bf16 operands, column-segmented wide rows, windows that need
 more than 48 KB of shared memory, fully pruned tables, the wrapper's
-refusals; for the weight-gradient kernel every tile shape of the training
+refusals; for the implicit conv kernel's int8 instance (tensor-core
+products) the serving row shape at batch 32 and 1, M-blocks that are not a
+multiple of 16 rows, 16-, 32- and 128-row K-tiles, K-steps that span two
+channels, columns with no live tile, all-zero windows at stride 2, windows
+whose untapped pixels alone are nonzero, column segments, windows beyond 48
+KB and beyond what fits with all channels, two launches bit-identical and
+skip counters equal; for the weight-gradient kernel every tile shape of the training
 path, one live tile and all of them in a shuffled order, row counts that
 are not a multiple of the 32-row step, M = 131072, and bit-identical
 results across two launches; for the dense int8 matmul (K4) every
@@ -177,6 +183,94 @@ def test_implicit_conv_kernel_vs_plain(dev, case, packed, mode):
         assert torch.equal(got[1], want[1])
         got, want = got[0], want[0]
     _check(got, want, tol)
+
+
+IMMA_CASES = [  # (k, cin, cout, stride, h, w, batch, cap, n_cu, activation pattern)
+    (3, 16, 16, 1, 32, 32, 32, 128, 12, "half_batch"),  # the row shape s0b0/conv1, batch 32
+    (3, 16, 16, 1, 32, 32, 1, 128, 12, "half_batch"),   # the same at batch 1
+    (3, 8, 16, 1, 8, 8, 2, 8, 4, "half"),               # bm 8: half an m16 tile
+    (3, 8, 16, 1, 12, 12, 2, 24, 4, "half"),            # bm 24
+    (3, 8, 16, 2, 12, 12, 2, 128, 4, "half"),           # bm 40, stride 2
+    (5, 40, 24, 1, 20, 20, 1, 128, 4, "half"),          # bk 32 (unpacked 5x5): one k32 step
+    (7, 6, 16, 1, 10, 10, 2, 128, 4, "half"),           # packed slot 56: a K-step spans 2 channels
+    (3, 4, 8, 1, 3, 150, 1, 128, 4, "half"),            # spi 2 column segments
+    (1, 16, 16, 4, 32, 64, 2, 128, 4, "half"),          # window + weight ring above 48 KB
+    (3, 40, 8, 7, 77, 77, 1, 128, 4, "half"),           # all channels too large: per-step window
+    (3, 16, 32, 2, 32, 32, 4, 128, 12, "zero_windows"),  # stride 2, whole windows zero
+    (1, 16, 16, 2, 16, 16, 2, 128, 4, "odd_only"),      # stride 2: only untapped pixels nonzero
+]
+
+
+def _imma_operands(case, packed, mode, dev):
+    """Int8 operands of one conv layer for the tensor-core instance, with an
+    activation pattern that exercises the skip: ``half_batch`` zeroes the top
+    half of the first half of the images (as the smoke run does), ``half``
+    the top half of image 0, ``zero_windows`` image 0 and the first M-block
+    window of image 1, ``odd_only`` every even row and column (at stride 2
+    the tapped pixels of a 1x1 conv are zero, its windows are not)."""
+    k, cin, cout, stride, h, w_, batch, cap, n_cu, pattern = case
+    rs = np.random.RandomState(sum(case[:9]))
+    layout = TP.conv_gemm_layout(TG.fpga_conv_groups((k, k, cin, cout), n_cu), packed=packed)
+    gm = (rs.rand(layout.spec.num_groups) < 0.6).astype(np.float32)
+    gm.reshape(cin, -1)[:, -1] = 0
+    w = torch.from_numpy((rs.randn(k, k, cin, cout) * np.sqrt(2.0 / (k * k * cin))
+                          ).astype(np.float32)).to(dev)
+    x = np.maximum(rs.randn(batch, h, w_, cin), 0).astype(np.float32)
+    if pattern == "half_batch":
+        x[: max(batch // 2, 1), : h // 2] = 0.0
+    elif pattern == "half":
+        x[0, : h // 2] = 0.0
+    elif pattern == "zero_windows":
+        x[0] = 0.0
+        x[1, : h // 2 + 1] = 0.0
+    else:
+        x[:, ::2] = 0.0
+        x[:, :, ::2] = 0.0
+    x = torch.from_numpy(x).to(dev)
+    q = TQ.QuantSpec.calibrate(w)
+    wp = layout.pack_weight(q.weight_codes(layout.spec.expand(gm).to(dev) * w)).contiguous()
+    xin = q.act_codes(x)
+    scale = layout.pack_bias(q.dequant_row(cout, dev))
+    bias = layout.pack_bias(torch.from_numpy(rs.randn(cout).astype(np.float32)).to(dev))
+    out_scale = (layout.pack_bias(torch.full((cout,), 16.0, device=dev))
+                 if mode == "streamed_dsb" else None)
+    from repro_torch.kernels.conv_lowering import conv_out_size
+    ho, wo = conv_out_size(h, k, stride, "SAME"), conv_out_size(w_, k, stride, "SAME")
+    mb = IC.choose_m_block(ho, wo, cap=cap)
+    geo = layout.implicit_geometry()
+    assert IC.window_fits_card(*IC.window_shape(mb, k, k, stride), geo["cpk"])
+    xp = IC.pad_input(xin, k, k, stride, "SAME", mb, layout.tiles[0] * geo["cpk"]).contiguous()
+    plan = layout.plan(gm)
+    idx, cnt = (torch.from_numpy(a).to(dev) for a in (plan.idx, plan.cnt))
+    dsb = mode == "streamed_dsb"
+    kw = dict(kx=k, ky=k, stride=stride, mb=mb, block=layout.block, cpk=geo["cpk"],
+              slot=geo["slot"], relu=True, activation_dsb=dsb, count_skips=dsb)
+    return (xp, wp, idx, cnt, bias, scale, out_scale), kw
+
+
+@pytest.mark.parametrize("case", IMMA_CASES, ids=lambda c: "x".join(map(str, c)))
+@pytest.mark.parametrize("packed", [False, True])
+@pytest.mark.parametrize("mode", ["int8", "streamed_dsb"])
+def test_implicit_conv_int8_tensor_core_instance(dev, case, packed, mode):
+    """The int8 instance (tensor-core products) bit-equal to the plain
+    version, outputs and skip counters, two launches bit-identical, one
+    launch counted per call."""
+    args, kw = _imma_operands(case, packed, mode, dev)
+    before = IC.launch_count()
+    got = IC.implicit_block_sparse_conv(*args, **kw)
+    again = IC.implicit_block_sparse_conv(*args, **kw)
+    torch.cuda.synchronize()
+    assert IC.launch_count() == before + 2
+    want = IC.implicit_block_sparse_conv_plain(*args, **kw)
+    if kw["count_skips"]:
+        assert torch.equal(got[1], want[1]) and torch.equal(again[1], got[1])
+        if case[-1] == "zero_windows":
+            assert int(got[1].sum()) > 0
+        got, again, want = got[0], again[0], want[0]
+    assert torch.equal(got, again)
+    _check(got, want, 0)
+    if not packed:
+        assert int((args[3] == 0).sum()) > 0        # a column with cnt == 0
 
 
 @pytest.mark.parametrize("packed", [False, True])
