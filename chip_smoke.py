@@ -4,15 +4,19 @@
 Run ``python3 chip_smoke.py`` from the repository root. It
 
 1. builds the CUDA kernels from ``src/repro_torch/csrc`` with ``nvcc`` and
-   checks with ``cuobjdump -sass`` that the int8 instances of the implicit
-   conv kernel (K2) hold tensor-core (``IMMA``) instructions,
+   checks with ``cuobjdump -sass`` that every instance of the implicit conv
+   kernel (K2) holds tensor-core instructions: ``IMMA`` in the int8 ones,
+   ``HMMA`` in the f32 (3xTF32) and bf16 ones,
 2. holds each kernel against its plain PyTorch version on the GPU at the
    layer shapes of the full-width ``ResNetConfig()`` (bit equality for int8
-   outputs and skip counters, <= 1e-4 for f32), timing kernel, plain version
+   outputs and skip counters, <= 1e-4 for f32, K2's f32 instance also
+   bit-identical across two launches), timing kernel, plain version
    and ``F.conv2d`` as a yardstick (``*_ms``: device time per launch with
    the launches queued back to back; ``*_call_ms``: one call on an idle
    device, host-side wrapper included); the representative geometry also
-   at batch 1, serving's smallest bucket,
+   at batch 1, serving's smallest bucket; K2's f32 instance again at the
+   training batch (128) at every layer geometry in both layouts, the shapes
+   the training forward launches (``kernels_f32_train``),
 3. serves the full-width, HAPM-pruned (0.5), random-weight network through
    ``CnnServer`` in both tile layouts (implicit kernel on all 21 layers), the
    materializing contract, the default command-line contract and every rung
@@ -58,8 +62,9 @@ counts the padded lanes and rows the kernel's output array carries.
 fixed point), each counted from zero just before it is driven;
 ``launches_by_path`` splits them. K2's entry also has ``by_mode``: its int8
 (``streamed``, ``int8``) and f32 instances at the representative geometry,
-and streamed at batch 1 in both layouts, each beside its bound and the cuDNN
-yardstick. The ``timing`` phase gives each bucket's device time per kernel
+streamed at batch 1 in both layouts, each beside its bound and the cuDNN
+yardstick, and f32 at the training batch in both layouts
+(``f32_batch128``). The ``timing`` phase gives each bucket's device time per kernel
 (``device_ms_by_kernel``). The pricing path's times and GOP/s for the FPGA
 boards are outputs of the cycle model, not times on the card.
 """
@@ -172,15 +177,19 @@ def gpu_name_and_limit() -> str:
     return out.stdout.strip().splitlines()[0] if out.stdout.strip() else "unknown"
 
 
-# K2's int8 instances, by the name of their kernel template
+# K2's instances, by the name of their kernel templates: int8 codes, and the
+# f32 / bf16 operands (told apart by the bf16 type in the mangled name)
 K2_INT8_KERNEL = "implicit_conv_kernel_imma"
+K2_FLOAT_KERNEL = "implicit_conv_kernel"
 
 
 def tensor_core_instances() -> dict:
-    """{K2 int8 instance: IMMA instructions in its SASS} from ``cuobjdump
-    -sass`` of the built library. Raises unless each of the four int8
-    instances of K2 (one per m16 tiles per block) holds tensor-core (IMMA)
-    instructions: the proof that the int8 products run on the tensor cores."""
+    """{"int8": {instance: IMMA instructions}, "f32": {instance: HMMA
+    instructions}, "bf16": {...}} for K2 from ``cuobjdump -sass`` of the
+    built library. Raises unless each of the four int8 instances of K2 (one
+    per m16 tiles per block) holds integer tensor-core (IMMA) instructions
+    and each of the four f32 and four bf16 instances holds float ones
+    (HMMA): the proof that all of K2's products run on the tensor cores."""
     tool = os.path.join(os.path.dirname(_build.find_nvcc()), "cuobjdump")
     sass = subprocess.run([tool, "-sass", str(_build.library_path())], text=True,
                           stdout=subprocess.PIPE, stderr=subprocess.STDOUT, timeout=300)
@@ -190,14 +199,20 @@ def tensor_core_instances() -> dict:
     for line in sass.stdout.splitlines():
         if "Function :" in line:
             fn = line.split("Function :", 1)[1].strip()
-            counts[fn] = 0
-        elif fn is not None and "IMMA" in line:
-            counts[fn] += 1
-    k2 = {f: n for f, n in counts.items() if "implicit_conv_kernel" in f}
-    int8 = {f: n for f, n in k2.items() if K2_INT8_KERNEL in f}
-    if len(int8) < 4 or not all(int8.values()):
-        raise AssertionError(f"K2's int8 instances lack IMMA instructions: {k2}")
-    return int8
+            counts[fn] = {"IMMA": 0, "HMMA": 0}
+        elif fn is not None:
+            for op in ("IMMA", "HMMA"):
+                if op in line:
+                    counts[fn][op] += 1
+    k2 = {f: n for f, n in counts.items() if K2_FLOAT_KERNEL in f}
+    out = {"int8": {f: n["IMMA"] for f, n in k2.items() if K2_INT8_KERNEL in f}}
+    floats = {f: n["HMMA"] for f, n in k2.items() if K2_INT8_KERNEL not in f}
+    out["bf16"] = {f: n for f, n in floats.items() if "bfloat16" in f}
+    out["f32"] = {f: n for f, n in floats.items() if "bfloat16" not in f}
+    for kind, op in (("int8", "IMMA"), ("f32", "HMMA"), ("bf16", "HMMA")):
+        if len(out[kind]) < 4 or not all(out[kind].values()):
+            raise AssertionError(f"K2's {kind} instances lack {op} instructions: {k2}")
+    return out
 
 
 def sync(device) -> None:
@@ -335,14 +350,15 @@ def layer_geometries(cfg: cnn.ResNetConfig):
 
 
 def make_case(geom, packed: bool, mode: str, batch: int, n_cu: int, device,
-              rs: np.random.RandomState):
+              rs: np.random.RandomState, k1: bool = True):
     """Operands of both kernels for one conv layer, as ``make_sparse_conv``
     would hand them over: packed (masked) weight, dispatch table, epilogue
-    rows, the padded activation (implicit kernel) and the packed patch
-    matrix (matmul kernel). ``mode``: "f32", "int8" (f32 out) or "streamed"
-    (int8 codes out, activation-DSB with skip counting). Half the groups
-    are pruned at random and the last f_block column entirely, so one
-    output tile column has cnt == 0 in the unpacked layout."""
+    rows, the padded activation (implicit kernel) and, unless ``k1`` is
+    False, the packed patch matrix (matmul kernel). ``mode``: "f32", "int8"
+    (f32 out) or "streamed" (int8 codes out, activation-DSB with skip
+    counting). Half the groups are pruned at random and the last f_block
+    column entirely, so one output tile column has cnt == 0 in the unpacked
+    layout."""
     name, H, stride, k, cin, cout = geom
     spec = fpga_conv_groups((k, k, cin, cout), n_cu)
     layout = conv_gemm_layout(spec, packed=packed)
@@ -376,7 +392,8 @@ def make_case(geom, packed: bool, mode: str, batch: int, n_cu: int, device,
     geo = layout.implicit_geometry()
     xp = IC.pad_input(xin, k, k, stride, "SAME", mb, layout.tiles[0] * geo["cpk"])
     bm1 = adaptive_bm(batch * ho * ho)
-    p2d, _ = _pad_rows(layout.pack_patches(im2col_patches(xin, k, k, stride, "SAME")), bm1)
+    p2d = (_pad_rows(layout.pack_patches(im2col_patches(xin, k, k, stride, "SAME")), bm1)[0]
+           if k1 else torch.empty((batch * mb.bpi * mb.bm, 0), device=device))
     itemsize = xin.element_size()
     out_itemsize = 1 if mode == "streamed" else 4
     real_out = batch * ho * ho * cout
@@ -526,9 +543,12 @@ def library_ms(case, device, reps) -> float:
         return device_ms(fn, device, reps)
 
 
-def kernel_case_row(case, device, reps: int, plain_reps: int, worst) -> dict:
-    """Both conv kernels on one case: held to their plain versions (raises
-    on a difference), timed beside their bounds and the cuDNN yardstick."""
+def kernel_case_row(case, device, reps: int, plain_reps: int, worst,
+                    k1: bool = True) -> dict:
+    """Both conv kernels (K2 alone unless ``k1``) on one case: held to
+    their plain versions (raises on a difference; K2's f32 instance also
+    launched twice, bit-identical), timed beside their bounds and the cuDNN
+    yardstick."""
     row = {k: case[k] for k in ("name", "packed", "mode", "batch",
                                 "H", "stride", "k", "cin", "cout")}
     row["live_tiles"] = int(case["common"]["cnt"].sum())
@@ -538,8 +558,15 @@ def kernel_case_row(case, device, reps: int, plain_reps: int, worst) -> dict:
              IC.implicit_block_sparse_conv,
              IC.implicit_block_sparse_conv_plain, "bound_k2"),
             ("block_sparse_matmul", run_k1, BSM.block_sparse_matmul,
-             BSM.block_sparse_matmul_plain, "bound_k1")):
+             BSM.block_sparse_matmul_plain, "bound_k1"))[:2 if k1 else 1]:
         got = run(kern, case)
+        if kname == "implicit_block_sparse_conv" and case["mode"] == "f32":
+            again = run(kern, case)
+            sync(device)
+            if not torch.equal(got, again):
+                raise AssertionError(f"{kname} {case['name']} packed={case['packed']} "
+                                     f"batch={case['batch']} f32: two launches differ")
+            row["k2_bit_identical"] = True
         sync(device)
         want = run(plain, case)
         err = compare(kname, got, want, case)
@@ -557,7 +584,7 @@ def kernel_case_row(case, device, reps: int, plain_reps: int, worst) -> dict:
             row["live_steps"] = int(got[1].shape[0]) * row["live_tiles"]
     if case.get("profile"):
         for tag, run, kern in (("k2", run_k2, IC.implicit_block_sparse_conv),
-                               ("k1", run_k1, BSM.block_sparse_matmul)):
+                               ("k1", run_k1, BSM.block_sparse_matmul))[:2 if k1 else 1]:
             prof = profiler_device_ms(lambda: run(kern, case), device, reps)
             row[f"{tag}_profiler_ms"] = None if prof is None else prof["total_ms"]
     row["library_ms"] = library_ms(case, device, reps)
@@ -601,6 +628,28 @@ def phase_kernels(cfg, device, batch: int, reps: int, plain_reps: int):
     emit("kernels", batch=batch, f32_tol=F32_TOL, int8_tol=0.0,
          reps=reps, plain_reps=plain_reps, cases=cases_out)
     return worst, rep, by_mode
+
+
+def phase_kernels_f32_train(cfg, device, batch: int, reps: int, plain_reps: int,
+                            worst, by_mode):
+    """K2's f32 instance at the training batch, as the training forward
+    launches it: every distinct layer geometry in both layouts, within
+    F32_TOL of the plain version, two launches bit-identical, timed beside
+    its bound and cuDNN (f32, TF32 off). Adds the representative geometry's
+    rows to ``by_mode`` (``f32_batch128``, ``f32_batch128_packed``)."""
+    rs = np.random.RandomState(19)
+    rep_geom = (cfg.image_size, 1, 3, cfg.widths[0], cfg.widths[0])
+    rows = []
+    for geom in layer_geometries(cfg):
+        for packed in (False, True):
+            case = make_case(geom, packed, "f32", batch, N_CU, device, rs, k1=False)
+            row = kernel_case_row(case, device, reps, plain_reps, worst, k1=False)
+            row["k2_ms_div_library"] = row["k2_ms"] / row["library_ms"]
+            rows.append(row)
+            if geom[1:] == rep_geom:
+                by_mode[f"f32_batch{batch}{'_packed' if packed else ''}"] = row
+    emit("kernels_f32_train", batch=batch, f32_tol=F32_TOL, reps=reps,
+         plain_reps=plain_reps, cases=rows)
 
 
 # ---------------------------------------------------------------------------
@@ -1378,11 +1427,13 @@ def main(argv=None) -> int:
          card=card, device=torch.cuda.get_device_name(0))
 
     _build.load()
-    imma = tensor_core_instances()
+    mma = tensor_core_instances()
     emit("build", seconds=_build.build_seconds, library=os.path.relpath(
         str(_build.library_path()), ROOT), flags=list(_build.NVCC_FLAGS),
-         k2_int8_imma_instructions=imma)
+         k2_int8_imma_instructions=mma["int8"], k2_f32_hmma_instructions=mma["f32"],
+         k2_bf16_hmma_instructions=mma["bf16"])
     worst, rep, k2_by_mode = phase_kernels(cfg, device, kernel_batch, reps, plain_reps)
+    phase_kernels_f32_train(cfg, device, TRAIN_BATCH, reps, plain_reps, worst, k2_by_mode)
     worst["block_sparse_grad_weight"], rep_gw = phase_kernels_grad_weight(
         cfg, device, TRAIN_BATCH, reps, plain_reps)
     worst["int8_matmul"], rep_i8 = phase_kernels_int8_matmul(device, reps, plain_reps)

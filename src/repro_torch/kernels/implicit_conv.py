@@ -35,12 +35,13 @@ Two implementations of the one function live here:
 
 - :func:`implicit_block_sparse_conv` — the wrapper. For a CUDA tensor it
   launches the hand-written kernel ``csrc/implicit_conv.cu`` (or raises);
-  for a CPU tensor, and only then, it runs the plain version. The kernel
-  has two instances: int8 codes multiply on the tensor cores (``mma.sync``,
-  exact int32 sums) from a window staged once per block as int8 with all
-  its channels, and decide every step's activation skip from that copy
-  before the product loop; f32 and bf16 operands keep an exact-FMA product
-  loop on the CUDA cores with the window restaged per live step.
+  for a CPU tensor, and only then, it runs the plain version. Both of the
+  kernel's instances multiply on the tensor cores (``mma.sync``) from a
+  window staged once per block with all its channels: int8 codes with exact
+  int32 sums, deciding every step's activation skip from that copy before
+  the product loop; f32 operands as 3×TF32 (each operand split into two
+  TF32 halves, three products summed in f32: within 1e-4, where one TF32
+  product is not) and bf16 operands with exact products, both in f32.
 - :func:`implicit_block_sparse_conv_plain` — the same function in plain
   PyTorch on the same packed operands and tables; the CPU path and the
   yardstick the kernel is held to on the card.
@@ -68,9 +69,11 @@ from .ref import int_matmul_exact
 SLAB_VMEM_BUDGET = 2 * 1024 * 1024
 
 # What a thread block of the CUDA kernel may hold in shared memory (sm_90),
-# and what it needs besides the window: one 32-row weight-tile slice.
+# and what its f32/bf16 instance needs beside a per-step window: two weight
+# units of one K step (8.5 KB), the K-index table and the epilogue rows,
+# under 16 KB for any tile up to 1024 rows deep.
 CARD_SHARED_BYTES = 232448
-_WEIGHT_SLICE_BYTES = 32 * 128 * 4
+_BESIDE_WINDOW_BYTES = 16 * 1024
 
 _launches = 0
 
@@ -133,15 +136,16 @@ def window_shape(mb: MBlock, kx: int, ky: int, stride: int) -> Tuple[int, int]:
 
 
 def window_fits_card(rows: int, cols: int, cpk: int) -> bool:
-    """Whether the CUDA kernel's block can stage this window: the f32/bf16
-    instance holds it in the 4-byte accumulator type plus one weight slice
-    in the card's shared memory (the int8 instance holds it as bytes beside
-    82 KB of weight buffers, which fits wherever this does). The second
-    condition beside
-    :data:`SLAB_VMEM_BUDGET`; a window that fails it takes the
-    materializing path."""
+    """Whether the CUDA kernel's block can stage this window of one K-tile's
+    ``cpk`` channels: at 4 bytes an element (f32) beside 16 KB in the
+    card's shared memory, which the f32/bf16 instance's per-step path needs
+    at most (the int8 instance holds the window as bytes beside 82 KB of
+    weight buffers, which fits wherever this does). Where the window of all
+    channels fits as well, both instances stage it once per block instead.
+    The second condition beside :data:`SLAB_VMEM_BUDGET`; a window that
+    fails it takes the materializing path."""
     win = _ceil_to(rows * cols * cpk, 4) * 4
-    return win + _WEIGHT_SLICE_BYTES <= CARD_SHARED_BYTES
+    return win + _BESIDE_WINDOW_BYTES <= CARD_SHARED_BYTES
 
 
 def pad_input(x: torch.Tensor, kx: int, ky: int, stride: int, padding: str,

@@ -852,7 +852,8 @@ def bind_execution(
     tables live and where the bound convs run — the GPU by default
     (raises without one); ``device="cpu"`` binds the plain PyTorch
     versions explicitly. Weights on another device are copied at bind
-    time.
+    time. On CUDA an int ``spec.bm`` above the kernels' cap (128) raises
+    :class:`PermanentBindError` before any layer binds; the CPU takes any.
 
     ``spec.trainable=True`` (plain trees only): nothing is prepacked — each
     bound conv re-packs the weight ``apply`` hands it per call, so the exec
@@ -865,10 +866,20 @@ def bind_execution(
     through ``launch.exec_cache`` which re-keys on the sparsity
     fingerprint).
     """
+    from ..kernels.block_sparse_matmul import KERNEL_MAX_BM
     from ..sparse.conv_plan import make_sparse_conv
 
     spec = ExecSpec() if spec is None else spec
     dev = resolve_device(device) if bind_kernels else None
+    if (dev is not None and dev.type == "cuda" and isinstance(spec.bm, int)
+            and spec.bm > KERNEL_MAX_BM):
+        # refused here, before any layer binds: the CUDA kernels take at
+        # most KERNEL_MAX_BM rows per M-block, and an exec bound past it
+        # would fail at its first call (the CPU's plain versions take any)
+        raise PermanentBindError(
+            f"ExecSpec.bm={spec.bm} exceeds the CUDA kernels' cap of "
+            f"bm <= {KERNEL_MAX_BM} rows per M-block on {dev} — use "
+            f"bm='auto' or an int <= {KERNEL_MAX_BM}")
     if spec.folded:
         if quant_spec is not None:
             raise PermanentBindError(

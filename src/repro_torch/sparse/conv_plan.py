@@ -518,7 +518,9 @@ def make_sparse_conv(layout: ConvGemmLayout, group_mask, *, bm="auto",
 
     ``bm``: M-blocking. ``"auto"`` (default) adapts to the layer —
     whole-output-row blocks for the implicit kernel, ``ceil8(B·Ho·Wo)``
-    capped at 128 for the materializing path; an int pins it.
+    capped at 128 for the materializing path; an int pins it. An int above
+    128 raises ``ValueError`` here when the bind's device is CUDA (the
+    kernels' cap); the CPU takes any.
 
     ``weight``: bind-time prepacking. The masked weight is packed **once**
     here and the closure only pads the activation (implicit) or packs
@@ -611,6 +613,14 @@ def make_sparse_conv(layout: ConvGemmLayout, group_mask, *, bm="auto",
     bm_cap = 128 if adaptive else int(bm)
     if device is None and weight is not None:
         device = weight.device
+    if (device is not None and torch.device(device).type == "cuda"
+            and bm_cap > IC.KERNEL_MAX_BM):
+        # before anything lands on the card: the CUDA kernels take at most
+        # KERNEL_MAX_BM rows per M-block (the CPU's plain versions any)
+        raise ValueError(
+            f"bm={bm_cap} exceeds the CUDA kernels' cap of bm <= "
+            f"{IC.KERNEL_MAX_BM} rows per M-block — bind with bm='auto' or "
+            f"an int <= {IC.KERNEL_MAX_BM}, or on the CPU")
     cout = layout.spec.shape[-1]
 
     def _f32(v):

@@ -2,7 +2,12 @@
 shapes the smoke run does not reach: every rows-per-thread instance
 (bm 8 ... 128), bf16 operands, column-segmented wide rows, windows that need
 more than 48 KB of shared memory, fully pruned tables, the wrapper's
-refusals; for the implicit conv kernel's int8 instance (tensor-core
+refusals and the bind's (``bm`` above 128 on CUDA); for the implicit conv
+kernel's f32 (3xTF32) and bf16 instances (tensor-core products) the row
+shape, a column whose last nonzero lane lies inside an n8 tile, live tiles
+whose weights are all zero, K-tiles over two weight units, narrow window
+copies, the per-step window path, and two launches bit-identical; for the
+implicit conv kernel's int8 instance (tensor-core
 products) the serving row shape at batch 32 and 1, M-blocks that are not a
 multiple of 16 rows, 16-, 32- and 128-row K-tiles, K-steps that span two
 channels, columns with no live tile, all-zero windows at stride 2, windows
@@ -271,6 +276,152 @@ def test_implicit_conv_int8_tensor_core_instance(dev, case, packed, mode):
     _check(got, want, 0)
     if not packed:
         assert int((args[3] == 0).sum()) > 0        # a column with cnt == 0
+
+
+FLOAT_CASES = [  # (k, cin, cout, stride, h, w, batch, cap, n_cu, weights)
+    (3, 16, 16, 1, 32, 32, 32, 128, 12, "random"),  # row shape: last nonzero lane 11, in n8 tile 1
+    (3, 16, 32, 1, 16, 16, 4, 128, 12, "zero_fblock"),  # f-block 0 live but all-zero weights
+    (3, 3, 16, 1, 16, 16, 2, 128, 12, "random"),    # cin 3: 12- / 6-byte pixels, narrow copies
+    (3, 8, 16, 1, 8, 8, 2, 8, 4, "random"),         # bm 8: half an m16 tile
+    (3, 8, 16, 1, 12, 12, 2, 24, 4, "random"),      # bm 24
+    (3, 8, 16, 2, 12, 12, 2, 128, 4, "random"),     # bm 40, stride 2
+    (5, 40, 24, 1, 20, 20, 1, 128, 4, "random"),    # bk 32 (unpacked 5x5)
+    (7, 6, 16, 1, 10, 10, 2, 128, 4, "random"),     # bk 56: a K-tile over two f32 units
+    (3, 4, 8, 1, 3, 150, 1, 128, 4, "random"),      # spi 2 column segments
+    (1, 16, 16, 4, 32, 64, 2, 128, 4, "random"),    # stride 4: 113 KB window, all channels
+    (3, 40, 8, 7, 77, 77, 1, 128, 4, "random"),     # all channels too large: per-step window
+]
+
+
+def _float_operands(case, packed, dtype, dev):
+    """f32 or bf16 operands of one conv layer; ``zero_fblock`` zeroes the
+    weights of filter block 0 while its groups stay live, so its tiles are
+    in the table with all-zero lanes (unpacked: a whole column; packed: the
+    first n8 tile of the column and half of the second)."""
+    k, cin, cout, stride, h, w_, batch, cap, n_cu, weights = case
+    rs = np.random.RandomState(sum(case[:9]))
+    layout = TP.conv_gemm_layout(TG.fpga_conv_groups((k, k, cin, cout), n_cu), packed=packed)
+    gm = (rs.rand(layout.spec.num_groups) < 0.6).astype(np.float32)
+    gm.reshape(cin, -1)[:, -1] = 0
+    w = (rs.randn(k, k, cin, cout) * np.sqrt(2.0 / (k * k * cin))).astype(np.float32)
+    if weights == "zero_fblock":
+        gm.reshape(cin, -1)[:, 0] = 1
+        w[..., :n_cu] = 0.0
+    x = np.maximum(rs.randn(batch, h, w_, cin), 0).astype(np.float32)
+    x[0, : h // 2] = 0.0
+    wm = layout.spec.expand(gm).to(dev) * torch.from_numpy(w).to(dev)
+    wp = layout.pack_weight(wm).to(dtype).contiguous()
+    xin = torch.from_numpy(x).to(dev).to(dtype)
+    bias = layout.pack_bias(torch.from_numpy(rs.randn(cout).astype(np.float32)).to(dev))
+    from repro_torch.kernels.conv_lowering import conv_out_size
+    ho, wo = conv_out_size(h, k, stride, "SAME"), conv_out_size(w_, k, stride, "SAME")
+    mb = IC.choose_m_block(ho, wo, cap=cap)
+    geo = layout.implicit_geometry()
+    assert IC.window_fits_card(*IC.window_shape(mb, k, k, stride), geo["cpk"])
+    xp = IC.pad_input(xin, k, k, stride, "SAME", mb, layout.tiles[0] * geo["cpk"]).contiguous()
+    plan = layout.plan(gm)
+    idx, cnt = (torch.from_numpy(a).to(dev) for a in (plan.idx, plan.cnt))
+    kw = dict(kx=k, ky=k, stride=stride, mb=mb, block=layout.block, cpk=geo["cpk"],
+              slot=geo["slot"], relu=True)
+    return (xp, wp, idx, cnt, bias), kw
+
+
+def _bf16_ulp_of_largest(want):
+    """One bf16 ulp at the output's largest magnitude (the bar the f32 sums'
+    order leaves after rounding to bf16; 3.2e-2 above is that bar at 4..8)."""
+    return 2.0 ** (np.floor(np.log2(max(float(want.float().abs().max()), 2.0 ** -126))) - 7)
+
+
+@pytest.mark.parametrize("case", FLOAT_CASES, ids=lambda c: "x".join(map(str, c)))
+@pytest.mark.parametrize("packed", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_implicit_conv_float_tensor_core_instance(dev, case, packed, dtype):
+    """The f32 (3xTF32) and bf16 instances against the plain version: f32
+    within 1e-4, bf16 within one output ulp; two launches bit-identical,
+    one launch counted per call; skip counters zero."""
+    args, kw = _float_operands(case, packed, dtype, dev)
+    before = IC.launch_count()
+    got, skips = IC.implicit_block_sparse_conv(*args, count_skips=True, **kw)
+    again = IC.implicit_block_sparse_conv(*args, **kw)
+    torch.cuda.synchronize()
+    assert IC.launch_count() == before + 2
+    assert torch.equal(got, again)
+    assert int(skips.abs().sum()) == 0
+    want = IC.implicit_block_sparse_conv_plain(*args, **kw)
+    assert got.dtype == want.dtype == dtype and got.shape == want.shape
+    assert bool(torch.isfinite(got.float()).all())
+    if dtype == torch.float32:
+        _check(got, want, 1e-4)
+    else:
+        _check(got, want, _bf16_ulp_of_largest(want))
+    if case[-1] == "zero_fblock":
+        cnt, n_cu = args[3], case[8]
+        if not packed:      # column 0 is live and flushes the bias through ReLU alone
+            assert int(cnt[0]) > 0
+            b0 = torch.clamp(args[4][:n_cu], min=0).to(dtype)
+            assert torch.equal(got[:, :n_cu], b0.expand(got.shape[0], n_cu))
+
+
+def _offset_copy(t, elems):
+    """``t`` copied into a buffer ``elems`` elements past its start: the same
+    values, contiguous, at a pointer off the 16-byte alignment."""
+    buf = torch.zeros(t.numel() + elems, dtype=t.dtype, device=t.device)
+    buf[elems:].copy_(t.reshape(-1))
+    return buf[elems:].view(t.shape)
+
+
+@pytest.mark.parametrize("bn", [128, 20])
+@pytest.mark.parametrize("packed", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_implicit_conv_float_unaligned_and_narrow_tiles(dev, bn, packed, dtype):
+    """The float instance's element-copy paths: weight and activation
+    pointers off the 16-byte alignment (weights copied element by element,
+    the window in narrower chunks), and 20-lane tiles (bf16 rows not a whole
+    number of 16-byte chunks, a partial last n8 tile, no zero-row flush)."""
+    k, cin, cout, stride, h = 3, 12, 20, 1, 10
+    rs = np.random.RandomState(bn + packed)
+    layout = TP.conv_gemm_layout(TG.fpga_conv_groups((k, k, cin, cout), 4), packed=packed,
+                                 bn=bn)
+    gm = (rs.rand(layout.spec.num_groups) < 0.6).astype(np.float32)
+    w = torch.from_numpy((rs.randn(k, k, cin, cout) / np.sqrt(k * k * cin)
+                          ).astype(np.float32)).to(dev)
+    x = torch.from_numpy(np.maximum(rs.randn(2, h, h, cin), 0).astype(np.float32)).to(dev)
+    wp = layout.pack_weight(layout.spec.expand(gm).to(dev) * w).to(dtype).contiguous()
+    mb = IC.choose_m_block(h, h)
+    geo = layout.implicit_geometry()
+    xp = IC.pad_input(x.to(dtype), k, k, stride, "SAME", mb,
+                      layout.tiles[0] * geo["cpk"]).contiguous()
+    bias = layout.pack_bias(torch.from_numpy(rs.randn(cout).astype(np.float32)).to(dev))
+    plan = layout.plan(gm)
+    idx, cnt = (torch.from_numpy(a).to(dev) for a in (plan.idx, plan.cnt))
+    kw = dict(kx=k, ky=k, stride=stride, mb=mb, block=layout.block, cpk=geo["cpk"],
+              slot=geo["slot"], relu=True)
+    want = IC.implicit_block_sparse_conv_plain(xp, wp, idx, cnt, bias, **kw)
+    for xa, wa in ((xp, wp), (_offset_copy(xp, 1), _offset_copy(wp, 1))):
+        got = IC.implicit_block_sparse_conv(xa, wa, idx, cnt, bias, **kw)
+        again = IC.implicit_block_sparse_conv(xa, wa, idx, cnt, bias, **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(got, again)
+        tol = 1e-4 if dtype == torch.float32 else _bf16_ulp_of_largest(want)
+        _check(got, want, tol)
+
+
+def test_bind_execution_refuses_bm_over_cap_on_cuda(dev):
+    rs = np.random.RandomState(0)
+    params = {"conv0": {"w": torch.from_numpy(rs.randn(3, 3, 3, 16).astype(np.float32))}}
+    from repro_torch.models import cnn as TC
+    cfg = TC.ResNetConfig(stages=(1,), widths=(16,), image_size=8)
+    with pytest.raises(TC.PermanentBindError, match="bm <= 128"):
+        TC.bind_execution(params, cfg, spec=TC.ExecSpec(bm=256, dense_fallback=2.0),
+                          device="cuda")
+    with pytest.raises(ValueError, match="bm <= 128"):
+        TP.make_sparse_conv(TP.conv_gemm_layout(TG.fpga_conv_groups((3, 3, 3, 16), 12)),
+                            np.ones(3 * 2, np.float32), bm=256,
+                            weight=params["conv0"]["w"].to(dev))
+    # at the cap the bind runs on the card
+    ex = TC.bind_execution(params, cfg, spec=TC.ExecSpec(bm=128, dense_fallback=2.0),
+                           device="cuda")
+    assert ex.table[("conv0", "w")] is not None
 
 
 @pytest.mark.parametrize("packed", [False, True])

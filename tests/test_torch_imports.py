@@ -79,3 +79,11 @@ def test_kernel_sources_share_one_epilogue_header():
         assert '#include "epilogue.cuh"' in text
         assert "torch/extension.h" not in text
     assert "flush_epilogue" in (csrc / "epilogue.cuh").read_text()
+    # K2's float instances take their 3xTF32 / bf16 fragments from the
+    # shared header that the other float kernels are to include
+    conv = (csrc / "implicit_conv.cu").read_text()
+    assert '#include "mma_f32.cuh"' in conv and '#include "epilogue.cuh"' in conv
+    header = (csrc / "mma_f32.cuh").read_text()
+    for name in ("split_tf32", "mma_3xtf32", "mma_bf16", "m16n8k8.row.col.f32.tf32",
+                 "m16n8k16.row.col.f32.bf16"):
+        assert name in header, name
