@@ -6,7 +6,8 @@ Run ``python3 chip_smoke.py`` from the repository root. It
 1. builds the CUDA kernels from ``src/repro_torch/csrc`` with ``nvcc`` and
    checks with ``cuobjdump -sass`` that every instance of the implicit conv
    kernel (K2) holds tensor-core instructions: ``IMMA`` in the int8 ones,
-   ``HMMA`` in the f32 (3xTF32) and bf16 ones,
+   ``HMMA`` in the f32 (3xTF32) and bf16 ones; and ``HMMA`` in every
+   instance of the weight-gradient kernel (K3), f32 and bf16,
 2. holds each kernel against its plain PyTorch version on the GPU at the
    layer shapes of the full-width ``ResNetConfig()`` (bit equality for int8
    outputs and skip counters, <= 1e-4 for f32, K2's f32 instance also
@@ -118,6 +119,8 @@ from repro_torch.train.optimizer import sgd
 # f32 rate outside the tensor cores
 PEAK_BYTES_S = 3.35e12
 PEAK_OPS_S = {"int8": 1979e12, "f32": 67e12}
+# dense TF32 tensor rate: 3xTF32 takes three of its products for one f32 one
+PEAK_TF32_S = 495e12
 
 KERNEL_INFO = {
     "block_sparse_matmul": {
@@ -178,18 +181,23 @@ def gpu_name_and_limit() -> str:
 
 
 # K2's instances, by the name of their kernel templates: int8 codes, and the
-# f32 / bf16 operands (told apart by the bf16 type in the mangled name)
+# f32 / bf16 operands (told apart by the bf16 type in the mangled name);
+# K3's (f32 / bf16 operands; 16-byte or element copies; narrow or wide lanes)
 K2_INT8_KERNEL = "implicit_conv_kernel_imma"
 K2_FLOAT_KERNEL = "implicit_conv_kernel"
+K3_KERNEL = "grad_weight_stack_kernel"
 
 
 def tensor_core_instances() -> dict:
     """{"int8": {instance: IMMA instructions}, "f32": {instance: HMMA
-    instructions}, "bf16": {...}} for K2 from ``cuobjdump -sass`` of the
-    built library. Raises unless each of the four int8 instances of K2 (one
-    per m16 tiles per block) holds integer tensor-core (IMMA) instructions
-    and each of the four f32 and four bf16 instances holds float ones
-    (HMMA): the proof that all of K2's products run on the tensor cores."""
+    instructions}, "bf16": {...}} for K2 and {"k3_f32": ..., "k3_bf16": ...}
+    for K3, from ``cuobjdump -sass`` of the built library. Raises unless
+    each of the four int8 instances of K2 (one per m16 tiles per block)
+    holds integer tensor-core (IMMA) instructions, each of the four f32 and
+    four bf16 instances holds float ones (HMMA), and each of K3's four f32
+    and four bf16 instances (16-byte or element copies, narrow or wide lane
+    runs) holds HMMA: the proof that all of K2's and K3's products run on
+    the tensor cores."""
     tool = os.path.join(os.path.dirname(_build.find_nvcc()), "cuobjdump")
     sass = subprocess.run([tool, "-sass", str(_build.library_path())], text=True,
                           stdout=subprocess.PIPE, stderr=subprocess.STDOUT, timeout=300)
@@ -212,6 +220,12 @@ def tensor_core_instances() -> dict:
     for kind, op in (("int8", "IMMA"), ("f32", "HMMA"), ("bf16", "HMMA")):
         if len(out[kind]) < 4 or not all(out[kind].values()):
             raise AssertionError(f"K2's {kind} instances lack {op} instructions: {k2}")
+    k3 = {f: n["HMMA"] for f, n in counts.items() if K3_KERNEL in f}
+    out["k3_bf16"] = {f: n for f, n in k3.items() if "bfloat16" in f}
+    out["k3_f32"] = {f: n for f, n in k3.items() if "bfloat16" not in f}
+    for kind in ("k3_f32", "k3_bf16"):
+        if len(out[kind]) < 4 or not all(out[kind].values()):
+            raise AssertionError(f"K3's {kind[3:]} instances lack HMMA instructions: {k3}")
     return out
 
 
@@ -481,8 +495,7 @@ def compare(name: str, got, want, case) -> float:
 # belong to
 OWN_KERNELS = {"implicit_block_sparse_conv": ("implicit_conv_kernel",),
                "block_sparse_matmul": ("block_sparse_matmul_kernel",),
-               "block_sparse_grad_weight": ("grad_weight_partial_kernel",
-                                            "grad_weight_reduce_kernel"),
+               "block_sparse_grad_weight": (K3_KERNEL, "grad_weight_reduce_kernel"),
                "int8_matmul": ("int8_matmul_kernel",)}
 
 
@@ -848,21 +861,30 @@ def make_grad_case(geom, packed: bool, batch: int, n_cu: int, device,
     n_k, n_n = len(set(live[:, 0].tolist())), len(set(live[:, 1].tolist()))
     t_b_pad = 4 * (p2d.shape[0] * (bk * n_k + bn * n_n) + L * bk * bn) / PEAK_BYTES_S
     t_o_pad = 2 * p2d.shape[0] * bk * bn * L / PEAK_OPS_S["f32"]
+    # the same work with each product taken three times at the TF32 rate
+    t_o_3x = 3 * 2 * M * live_elems / PEAK_TF32_S
     return {"name": name, "packed": packed, "batch": batch, "H": H, "stride": stride,
             "k": k, "cin": cin, "cout": cout, "M": M, "block": (bk, bn), "bm": bm,
             "tile_mask": tm, "live_tiles": L, "x": p2d.contiguous(), "g": g2d.contiguous(),
             "kk": torch.from_numpy(live[:, 0].astype(np.int32)).to(device),
             "nn": torch.from_numpy(live[:, 1].astype(np.int32)).to(device),
+            "stacks": torch.from_numpy(BSM.grad_weight_stacks(live[:, 0], live[:, 1], bk)
+                                       ).to(device),
+            "g_lanes": layout.output_lanes,
             "scale": scale, "live_elems": live_elems, "bound_ms": max(t_b, t_o) * 1e3,
             "bound_by": "bytes" if t_b >= t_o else "operations",
-            "bound_padded_ms": max(t_b_pad, t_o_pad) * 1e3}
+            "bound_padded_ms": max(t_b_pad, t_o_pad) * 1e3,
+            "bound_3xtf32_ms": max(t_b, t_o_3x) * 1e3}
 
 
 def phase_kernels_grad_weight(cfg, device, batch: int, reps: int, plain_reps: int):
     """K3 at every distinct layer geometry in both layouts at training batch
     ``batch``: within GRAD_W_REL_TOL x max(|x|^T |g|) of the plain version,
     two launches bit-identical, dead tiles exactly zero after the scatter.
-    Returns (worst relative error, the row of the representative shape)."""
+    The kernel takes the stack table and the lane count as the training
+    path's bind hands them over (the table built once, on the device; g
+    zero past the layout's ``output_lanes``). Returns (worst relative error,
+    the row of the representative shape)."""
     rs = np.random.RandomState(11)
     rows, rep, worst = [], {}, 0.0
     prev_tf32 = torch.backends.cuda.matmul.allow_tf32
@@ -871,8 +893,11 @@ def phase_kernels_grad_weight(cfg, device, batch: int, reps: int, plain_reps: in
             c = make_grad_case(geom, packed, batch, N_CU, device, rs)
             kw = dict(block=c["block"], bm=c["bm"])
             run = lambda fn: fn(c["x"], c["g"], c["kk"], c["nn"], **kw)
-            got = run(BSM.block_sparse_grad_weight)
-            again = run(BSM.block_sparse_grad_weight)
+            kern = lambda: BSM.block_sparse_grad_weight(c["x"], c["g"], c["kk"], c["nn"],
+                                                        stacks=c["stacks"],
+                                                        g_lanes=c["g_lanes"], **kw)
+            got = kern()
+            again = kern()
             sync(device)
             want = run(BSM.block_sparse_grad_weight_plain)
             label = f"block_sparse_grad_weight {c['name']} packed={packed}"
@@ -886,8 +911,8 @@ def phase_kernels_grad_weight(cfg, device, batch: int, reps: int, plain_reps: in
                                      f"{GRAD_W_REL_TOL} x {c['scale']}")
             worst = max(worst, err)
             bk, bn = c["block"]
-            dw = make_block_sparse_grad_weight(c["tile_mask"], c["block"], bm=c["bm"])(
-                c["x"], c["g"])
+            dw = make_block_sparse_grad_weight(c["tile_mask"], c["block"], bm=c["bm"],
+                                               g_lanes=c["g_lanes"])(c["x"], c["g"])
             dead = torch.from_numpy(~np.repeat(np.repeat(c["tile_mask"], bk, 0), bn, 1)
                                     ).to(device)
             if not bool((dw[dead] == 0).all()):
@@ -895,15 +920,17 @@ def phase_kernels_grad_weight(cfg, device, batch: int, reps: int, plain_reps: in
             row = {k: c[k] for k in ("name", "packed", "batch", "H", "stride", "k",
                                      "cin", "cout", "M", "bm", "live_tiles",
                                      "live_elems", "bound_ms", "bound_by",
-                                     "bound_padded_ms")}
+                                     "bound_padded_ms", "bound_3xtf32_ms")}
             row["block"] = list(c["block"])
+            row["stacks"] = int(c["stacks"].shape[0])
+            row["g_lanes"] = c["g_lanes"]
             row["split"] = list(BSM.grad_weight_split(
-                c["x"].shape[0], c["live_tiles"],
+                c["x"].shape[0], row["stacks"],
                 torch.cuda.get_device_properties(device).multi_processor_count))
             row["max_abs_err"] = err
             row["tol"] = GRAD_W_REL_TOL * c["scale"]
-            row["ms"] = device_ms(lambda: run(BSM.block_sparse_grad_weight), device, reps)
-            row["call_ms"] = time_ms(lambda: run(BSM.block_sparse_grad_weight), device, reps)
+            row["ms"] = device_ms(kern, device, reps)
+            row["call_ms"] = time_ms(kern, device, reps)
             row["plain_ms"] = time_ms(lambda: run(BSM.block_sparse_grad_weight_plain),
                                       device, plain_reps, warmup=1)
             # the dense product x^T g, f32 with TF32 off: a yardstick only
@@ -918,8 +945,7 @@ def phase_kernels_grad_weight(cfg, device, batch: int, reps: int, plain_reps: in
             # per tile
             if geom[1:] == (cfg.image_size, 1, 3, cfg.widths[0], cfg.widths[0]) \
                     and not packed:
-                prof = profiler_device_ms(lambda: run(BSM.block_sparse_grad_weight),
-                                          device, reps)
+                prof = profiler_device_ms(kern, device, reps)
                 row["profiler_ms"] = None if prof is None else prof["total_ms"]
                 rep = row
     emit("kernels_grad_weight", batch=batch, rel_tol=GRAD_W_REL_TOL, reps=reps,
@@ -1395,7 +1421,9 @@ def kernels_line(paths, worst, rep, rep_gw, rep_i8, by_mode):
                           "shape": {k: rep_i8[k] for k in ("shape", "M", "K", "N", "real")}})
         else:
             lines.append({**common, **{k: rep_gw[k] for k in timing},
-                          "shape": {k: rep_gw[k] for k in (*shape_keys, "M", "block")}})
+                          "bound_3xtf32_ms": rep_gw["bound_3xtf32_ms"],
+                          "shape": {k: rep_gw[k] for k in (*shape_keys, "M", "block",
+                                                           "stacks", "split", "g_lanes")}})
     return lines
 
 
@@ -1431,7 +1459,8 @@ def main(argv=None) -> int:
     emit("build", seconds=_build.build_seconds, library=os.path.relpath(
         str(_build.library_path()), ROOT), flags=list(_build.NVCC_FLAGS),
          k2_int8_imma_instructions=mma["int8"], k2_f32_hmma_instructions=mma["f32"],
-         k2_bf16_hmma_instructions=mma["bf16"])
+         k2_bf16_hmma_instructions=mma["bf16"], k3_f32_hmma_instructions=mma["k3_f32"],
+         k3_bf16_hmma_instructions=mma["k3_bf16"])
     worst, rep, k2_by_mode = phase_kernels(cfg, device, kernel_batch, reps, plain_reps)
     phase_kernels_f32_train(cfg, device, TRAIN_BATCH, reps, plain_reps, worst, k2_by_mode)
     worst["block_sparse_grad_weight"], rep_gw = phase_kernels_grad_weight(

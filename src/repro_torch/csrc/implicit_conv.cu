@@ -134,6 +134,7 @@
 //   under 113 KB, so two blocks share an SM. Skipping zero weights assumes finite
 //   activations: a NaN or Inf meets a skipped zero weight only where the
 //   plain version gives NaN.
+#include "cp_async.cuh"
 #include "epilogue.cuh"
 #include "mma_f32.cuh"
 
@@ -261,26 +262,6 @@ __device__ __forceinline__ void mma_k16(int (&c)[4], int a0, int a1, int b0) {
       "{%0,%1,%2,%3}, {%4,%5}, {%6}, {%0,%1,%2,%3};\n"
       : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
       : "r"(a0), "r"(a1), "r"(b0));
-}
-
-template <int V>
-__device__ __forceinline__ void cp_async(void* dst, const void* src) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(s), "l"(src), "n"(V));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  cp_async_commit();
-  cp_async_wait<0>();
 }
 
 // Copy `rows` window rows of `segs` runs of `len` contiguous bytes each

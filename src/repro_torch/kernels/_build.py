@@ -127,7 +127,7 @@ def load() -> ctypes.CDLL:
     lib.hapm_block_sparse_matmul.restype = I
     lib.hapm_implicit_block_sparse_conv.argtypes = [P] * 9 + [I] * 21 + [P]
     lib.hapm_implicit_block_sparse_conv.restype = I
-    lib.hapm_block_sparse_grad_weight.argtypes = [P] * 6 + [I] * 9 + [P]
+    lib.hapm_block_sparse_grad_weight.argtypes = [P] * 7 + [I] * 12 + [P]
     lib.hapm_block_sparse_grad_weight.restype = I
     lib.hapm_int8_matmul.argtypes = [P] * 4 + [I] * 5 + [P]
     lib.hapm_int8_matmul.restype = I

@@ -36,6 +36,7 @@ from __future__ import annotations
 
 from typing import Optional, Tuple
 
+import numpy as np
 import torch
 
 from ..core.quant import round_sat
@@ -53,13 +54,16 @@ KERNEL_MAX_BN = 128
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 
-# the weight-gradient kernel splits each live tile's rows into chunks of a
-# multiple of its 32-row staging step, enough chunks for about
-# GRAD_W_BLOCKS_PER_SM blocks on each SM of the device it runs on, but
-# none shorter than GRAD_W_MIN_CHUNK rows
+# the weight-gradient kernel runs one block per stack of up to
+# GRAD_W_STACK_ROWS // bk live tiles of one output column (their x columns
+# side by side as the tensor cores' 128 rows) and row chunk; it splits the
+# rows into chunks of a multiple of its 32-row staging step, enough chunks
+# for about GRAD_W_BLOCKS_PER_SM blocks on each SM of the device it runs on,
+# but none shorter than GRAD_W_MIN_CHUNK rows
+GRAD_W_STACK_ROWS = 128
 GRAD_W_SLICE_M = 32
 GRAD_W_BLOCKS_PER_SM = 2
-GRAD_W_MIN_CHUNK = 1024
+GRAD_W_MIN_CHUNK = 128
 
 _launches = 0
 _grad_w_launches = 0
@@ -283,14 +287,43 @@ def _check_grad_operands(x, g, kk, nn, block, bm):
     return M, K, N, bk, bn, L
 
 
-def grad_weight_split(M: int, L: int, n_sms: int) -> Tuple[int, int]:
+def stack_width(bk: int) -> int:
+    """Live tiles of ``bk`` rows in one stack of the weight-gradient kernel."""
+    if bk < 1:
+        raise ValueError(f"bk must be positive, got {bk}")
+    return max(1, GRAD_W_STACK_ROWS // bk)
+
+
+def grad_weight_stacks(kk, nn, bk: int) -> np.ndarray:
+    """The weight-gradient kernel's stack table for live tiles ``(kk[l],
+    nn[l])``: an ``(n_stacks, stack_width(bk))`` int32 array whose
+    row lists the indices ``l`` of up to that many live tiles of one output
+    column, ``-1`` past the last. Columns come in ascending order, the tiles
+    of a column in the caller's order; every tile stands in exactly one row.
+    A function of ``(kk, nn, bk)`` alone, built on the host once per bind."""
+    width = stack_width(bk)
+    kk, nn = np.asarray(kk).reshape(-1), np.asarray(nn).reshape(-1)
+    if kk.shape != nn.shape:
+        raise ValueError(f"kk {kk.shape} and nn {nn.shape} differ")
+    rows = []
+    for n in np.unique(nn):
+        ls = np.flatnonzero(nn == n)
+        for i in range(0, len(ls), width):
+            part = ls[i:i + width]
+            rows.append(np.pad(part, (0, width - len(part)), constant_values=-1))
+    return np.asarray(rows, np.int32).reshape(-1, width)
+
+
+def grad_weight_split(M: int, n_stacks: int, n_sms: int) -> Tuple[int, int]:
     """(S, chunk): the fixed split of the M rows the weight-gradient kernel
-    reduces over on a device with ``n_sms`` SMs — S chunks of ``chunk``
-    rows (a multiple of the kernel's 32-row step), the last one short. A
-    function of the shape and the device alone, so two launches on the same
-    inputs sum in the same order."""
+    reduces over, for ``n_stacks`` stacks (:func:`grad_weight_stacks`) on a
+    device with ``n_sms`` SMs — S chunks of ``chunk`` rows (a multiple of
+    the kernel's 32-row step), the last one short, so that ``n_stacks * S``
+    blocks come to about GRAD_W_BLOCKS_PER_SM an SM. A function of the shape
+    and the device alone, so two launches on the same inputs sum in the
+    same order."""
     target = GRAD_W_BLOCKS_PER_SM * n_sms
-    s = max(1, min(-(-target // L), -(-M // GRAD_W_MIN_CHUNK)))
+    s = max(1, min(-(-target // n_stacks), -(-M // GRAD_W_MIN_CHUNK)))
     chunk = -(-(-(-M // s)) // GRAD_W_SLICE_M) * GRAD_W_SLICE_M
     return -(-M // chunk), chunk
 
@@ -330,6 +363,8 @@ def block_sparse_grad_weight(
     *,
     block: Tuple[int, int] = (128, 128),
     bm: int = 128,
+    stacks: Optional[torch.Tensor] = None,  # grad_weight_stacks(kk, nn, bk)
+    g_lanes: Optional[int] = None,          # g is zero past these lanes of a column
 ) -> torch.Tensor:
     """``dW = x^T @ g`` restricted to the live weight tiles — the backward
     twin of :func:`block_sparse_matmul`. Returns the **compact** ``(L, bk,
@@ -341,9 +376,17 @@ def block_sparse_grad_weight(
 
     A CUDA ``x`` launches the CUDA kernel on the current stream (no
     synchronize) or raises; a CPU ``x`` runs
-    :func:`block_sparse_grad_weight_plain`. The kernel's sum over rows has
-    a fixed order (:func:`grad_weight_split`): two launches on the same
-    inputs give the same bits."""
+    :func:`block_sparse_grad_weight_plain`. The kernel multiplies the live
+    tiles of an output column together, by the stack table ``stacks``
+    (:func:`grad_weight_stacks` of the same ``kk``, ``nn``, on ``x``'s
+    device): a bind builds it once; without it the call builds it from a
+    host copy of ``kk`` and ``nn``. ``g_lanes`` (default: all ``bn``) is the
+    caller's promise that ``g`` is zero past that many lanes of every
+    ``bn``-lane column, as a conv layout's packed output gradient is past
+    its ``output_lanes``: the kernel reads none of those lanes and their dW
+    is 0, which is what the plain version computes from such a ``g``. The
+    kernel's sum over rows has a fixed order (:func:`grad_weight_split`):
+    two launches on the same inputs give the same bits."""
     if not x.is_cuda:
         return block_sparse_grad_weight_plain(x, g, kk, nn, block=block, bm=bm)
     global _grad_w_launches
@@ -361,21 +404,37 @@ def block_sparse_grad_weight(
             raise ValueError(f"{name} is on {t.device}, x on {dev}")
     if kk.dtype != torch.int32 or nn.dtype != torch.int32:
         raise TypeError("kk and nn must be int32")
-    x, g, kk, nn = (t.contiguous() for t in (x, g, kk, nn))
+    lanes = bn if g_lanes is None else int(g_lanes)
+    if not 1 <= lanes <= bn:
+        raise ValueError(f"g_lanes must be in 1..{bn}, got {g_lanes}")
+    width = stack_width(bk)
+    if stacks is not None and (
+            stacks.device != dev or stacks.dtype != torch.int32
+            or stacks.dim() != 2 or stacks.shape[1] != width
+            or not 1 <= stacks.shape[0] <= L):
+        raise ValueError(
+            f"stacks must be an int32 (n_stacks <= {L}, {width}) table on {dev} "
+            f"(grad_weight_stacks), got {tuple(stacks.shape)} {stacks.dtype} "
+            f"on {stacks.device}")
     out = torch.empty((L, bk, bn), dtype=torch.float32, device=dev)
     if M == 0:
         return out.zero_()
+    if stacks is None:
+        stacks = torch.from_numpy(grad_weight_stacks(
+            kk.cpu().numpy(), nn.cpu().numpy(), bk)).to(dev)
+    x, g, kk, nn, stacks = (t.contiguous() for t in (x, g, kk, nn, stacks))
+    n_stacks = stacks.shape[0]
     S, chunk = grad_weight_split(
-        M, L, torch.cuda.get_device_properties(dev).multi_processor_count)
+        M, n_stacks, torch.cuda.get_device_properties(dev).multi_processor_count)
     ws = (torch.empty((S, L, bk, bn), dtype=torch.float32, device=dev)
           if S > 1 else None)
     lib = _build.load()
     with torch.cuda.device(dev):
         err = lib.hapm_block_sparse_grad_weight(
             x.data_ptr(), g.data_ptr(), kk.data_ptr(), nn.data_ptr(),
-            None if ws is None else ws.data_ptr(), out.data_ptr(), M, K, N,
-            bk, bn, L, S, chunk, DTYPE_CODES[x.dtype],
-            torch.cuda.current_stream(dev).cuda_stream)
+            stacks.data_ptr(), None if ws is None else ws.data_ptr(),
+            out.data_ptr(), M, K, N, bk, bn, lanes, L, n_stacks, width, S, chunk,
+            DTYPE_CODES[x.dtype], torch.cuda.current_stream(dev).cuda_stream)
     _build.check_launch(err, "block_sparse_grad_weight")
     _grad_w_launches += 1
     return out

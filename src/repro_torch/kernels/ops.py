@@ -9,7 +9,7 @@ falls through to autograd of the plain versions.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -18,7 +18,8 @@ import torch.nn.functional as F
 from ..core import quant as Q
 from ..sparse.block_mask import (BlockSparsePlan, plan_from_tile_mask,
                                  transpose_plan)
-from .block_sparse_matmul import block_sparse_grad_weight, block_sparse_matmul
+from .block_sparse_matmul import (block_sparse_grad_weight, block_sparse_matmul,
+                                  grad_weight_stacks)
 from .int8_matmul import int8_matmul
 
 
@@ -56,20 +57,25 @@ def _row(v):
 
 
 def make_block_sparse_grad_weight(tile_mask: np.ndarray,
-                                  block: Tuple[int, int], *, bm: int = 128):
+                                  block: Tuple[int, int], *, bm: int = 128,
+                                  g_lanes: Optional[int] = None):
     """Build ``dw_fn(x2d, g2d) -> x2d^T @ g2d`` on the live tiles of
     ``tile_mask`` only (:func:`block_sparse_grad_weight`), scattered back
     onto the full packed ``(K, N)`` grid with pruned tiles *exactly* zero —
     the dW half of every block-sparse backward. Operands are cast to f32;
     rows of ``x2d`` / ``g2d`` are zero-padded to the ``bm`` multiple (zero
-    rows contribute nothing to the product). With no live tile the kernel
-    is not launched and the result is all zeros."""
+    rows contribute nothing to the product). ``g_lanes``: the caller's
+    promise that ``g2d`` is zero past that many lanes of every bn-lane
+    column (a conv layout's ``output_lanes``); the kernel then reads none of
+    them. With no live tile the kernel is not launched and the result is
+    all zeros."""
     tm = np.asarray(tile_mask)
     live = np.argwhere(tm)
     nKb, nNb = tm.shape
     bk, bn = block
     tables = DeviceTables(kk=live[:, 0].astype(np.int32),
-                          nn=live[:, 1].astype(np.int32))
+                          nn=live[:, 1].astype(np.int32),
+                          stacks=grad_weight_stacks(live[:, 0], live[:, 1], bk))
 
     def dw_fn(x2d, g2d):
         if live.shape[0] == 0:
@@ -79,7 +85,8 @@ def make_block_sparse_grad_weight(tile_mask: np.ndarray,
         xp, _ = _pad_rows(x2d.to(torch.float32), bm)
         gp, _ = _pad_rows(g2d.to(torch.float32), bm)
         compact = block_sparse_grad_weight(xp, gp, t["kk"], t["nn"],
-                                           block=(bk, bn), bm=bm)
+                                           block=(bk, bn), bm=bm,
+                                           stacks=t["stacks"], g_lanes=g_lanes)
         dw = torch.zeros((nKb, nNb, bk, bn), dtype=compact.dtype,
                          device=compact.device)
         dw[t["kk"].long(), t["nn"].long()] = compact
@@ -111,7 +118,8 @@ class _BoundBlockSparseMatmul:
     """The plans of one trainable block-sparse matmul: the forward table,
     the transposed table for dX, the live-tile list for dW."""
 
-    def __init__(self, plan: BlockSparsePlan, tile_mask: np.ndarray, bm: int):
+    def __init__(self, plan: BlockSparsePlan, tile_mask: np.ndarray, bm: int,
+                 g_lanes: Optional[int] = None):
         t_plan = transpose_plan(plan, np.asarray(tile_mask))
         self.block, self.t_block, self.bm = plan.block, t_plan.block, bm
         self.tables = DeviceTables(idx=np.asarray(plan.idx, np.int32),
@@ -119,7 +127,7 @@ class _BoundBlockSparseMatmul:
                                    t_idx=np.asarray(t_plan.idx, np.int32),
                                    t_cnt=np.asarray(t_plan.cnt, np.int32))
         self.dw_fn = make_block_sparse_grad_weight(tile_mask, plan.block,
-                                                   bm=bm)
+                                                   bm=bm, g_lanes=g_lanes)
 
     def forward(self, x, w):
         t = self.tables.on(x.device)

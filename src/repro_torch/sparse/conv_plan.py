@@ -120,6 +120,13 @@ class ConvGemmLayout:
     def n_packed(self) -> int:
         return self.tiles[1] * self.block[1]
 
+    @property
+    def output_lanes(self) -> int:
+        """Lanes of each bn-lane output column that ``unpack_output`` can
+        read; the lanes past them are padding in every column, so the
+        output gradient the backward packs is zero there."""
+        return self.block[1]
+
     # -- API (implemented by subclasses) -----------------------------------
     def tile_mask(self, group_mask) -> np.ndarray:
         """(num_groups,) {0,1} -> (nKb, nNb) bool, host-side."""
@@ -219,6 +226,10 @@ class FpgaConvGemmLayout(ConvGemmLayout):
         kx, ky, cin, cout = self.spec.shape
         return kx, ky, cin, cout, self.spec.n_cu, self.spec.n_fblocks
 
+    @property
+    def output_lanes(self) -> int:
+        return self.spec.n_cu
+
     def implicit_geometry(self) -> Optional[dict]:
         kx, ky = self.spec.shape[:2]
         # one channel per K-tile: the whole bk is that channel's slot
@@ -277,6 +288,10 @@ class PackedFpgaConvGemmLayout(ConvGemmLayout):
         kxky = kx * ky
         slot = _ceil_to(kxky, 8)
         return kxky, cin, cout, n_cu, n_fb, slot, bk // slot, bn // n_cu
+
+    @property
+    def output_lanes(self) -> int:
+        return self.block[1] // self.spec.n_cu * self.spec.n_cu
 
     def implicit_geometry(self) -> Optional[dict]:
         kxky, cin, cout, n_cu, n_fb, slot, cpk, fpn = self._packing()
@@ -761,7 +776,8 @@ def make_sparse_conv(layout: ConvGemmLayout, group_mask, *, bm="auto",
                                          dtype=g.dtype, device=g.device), g)
             bm_eff = adaptive_bm(m_rows, bm_cap) if adaptive else bm_cap
             if bm_eff not in gemms:
-                gemms[bm_eff] = ops._BoundBlockSparseMatmul(plan, tm, bm_eff)
+                gemms[bm_eff] = ops._BoundBlockSparseMatmul(
+                    plan, tm, bm_eff, g_lanes=layout.output_lanes)
             with torch.enable_grad():
                 xg = x.detach().requires_grad_(want_dx)
                 patches = layout.pack_patches(

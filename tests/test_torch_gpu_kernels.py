@@ -13,10 +13,15 @@ multiple of 16 rows, 16-, 32- and 128-row K-tiles, K-steps that span two
 channels, columns with no live tile, all-zero windows at stride 2, windows
 whose untapped pixels alone are nonzero, column segments, windows beyond 48
 KB and beyond what fits with all channels, two launches bit-identical and
-skip counters equal; for the weight-gradient kernel every tile shape of the training
-path, one live tile and all of them in a shuffled order, row counts that
-are not a multiple of the 32-row step, M = 131072, and bit-identical
-results across two launches; for the dense int8 matmul (K4) every
+skip counters equal; for the weight-gradient kernel (tensor-core
+products over stacks of one column's live tiles) every tile shape of the
+training path, one live tile and all of them in a shuffled order, row
+counts that are not a multiple of the 32-row step or of the row chunk,
+M = 131072, columns with more live tiles than a stack holds and with
+different stack counts, g zero past 12 lanes or dense, the element-copy
+instances (unaligned operands, a 6-row tile), the bind's lane count
+(``g_lanes``), a malformed stack table or lane count refused, and
+bit-identical results across two launches; for the dense int8 matmul (K4) every
 rows-per-thread instance, narrow column tiles, K tails shorter than its
 32-deep slice, sums past 2^24 and both scale forms, bit-equal to the plain
 version and to ``int8_matmul_ref``. Marked ``gpu``: skipped (with a reason, decided inside a fixture)
@@ -510,6 +515,109 @@ def test_grad_weight_wrapper_refusals(dev):
         BSM.block_sparse_grad_weight(x, g, kk.long(), nn, block=(16, 128), bm=128)
     with pytest.raises(TypeError, match="takes f32/bf16"):
         BSM.block_sparse_grad_weight(x.double(), g.double(), kk, nn, block=(16, 128), bm=128)
+
+
+def _stack_case(M, block, dtype, layout, lanes, seed, dev):
+    """Live tiles in a shuffled order. ``layout`` "multi": three output
+    columns holding 2*width + 3, width and 1 live tiles (three stacks, one,
+    one; width = tiles a stack holds), so one column needs more stacks than
+    one and the columns' stack counts differ; "one": a single live tile.
+    ``lanes`` < bn zeroes g past that many lanes of every column, as the
+    conv path's packed output gradient is past a group's filters."""
+    rs = np.random.RandomState(seed)
+    bk, bn = block
+    width = BSM.stack_width(bk)
+    nKb, nNb = 2 * width + 4, 3
+    if layout == "multi":
+        cells = [(k, n) for n, c in enumerate((2 * width + 3, width, 1))
+                 for k in rs.permutation(nKb)[:c]]
+    else:
+        cells = [(int(rs.randint(nKb)), int(rs.randint(nNb)))]
+    cells = [cells[i] for i in rs.permutation(len(cells))]
+    kk = torch.tensor([k for k, _ in cells], dtype=torch.int32, device=dev)
+    nn = torch.tensor([n for _, n in cells], dtype=torch.int32, device=dev)
+    x = torch.from_numpy(rs.randn(M, nKb * bk).astype(np.float32))
+    g = torch.from_numpy(rs.randn(M, nNb, bn).astype(np.float32))
+    g[:, :, lanes:] = 0.0
+    return x.to(dev).to(dtype), g.reshape(M, nNb * bn).to(dev).to(dtype), kk, nn
+
+
+@pytest.mark.parametrize("block", [(8, 128), (16, 128), (128, 128)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("layout", ["multi", "one"])
+@pytest.mark.parametrize("lanes", [12, 128], ids=["lanes12", "dense"])
+@pytest.mark.parametrize("M", [3000, 40000])
+def test_grad_weight_kernel_stacks(dev, block, dtype, layout, lanes, M):
+    """Stacks of one column's live tiles: more tiles than a stack holds,
+    columns with different stack counts, g zero past 12 lanes or dense, M
+    not a multiple of the row chunk, L = 1; within 1e-4 of the sums' scale
+    of the plain version, two launches bit-identical, the bind's stack table
+    and the call's own giving the same bits, and (g zero past 12 lanes) the
+    same bits again when the call is told so (``g_lanes=12``: those lanes
+    not read)."""
+    x, g, kk, nn = _stack_case(M, block, dtype, layout, lanes, M + block[0] + lanes, dev)
+    stacks = torch.from_numpy(BSM.grad_weight_stacks(kk.cpu().numpy(), nn.cpu().numpy(),
+                                                     block[0])).to(dev)
+    if layout == "multi":                        # 3 + 1 + 1 stacks, 7 for packed tiles
+        assert stacks.shape[0] == 4 - (-3 // BSM.stack_width(block[0]))
+    run = lambda **kw: BSM.block_sparse_grad_weight(x, g, kk, nn, block=block, bm=8, **kw)
+    got = run(stacks=stacks)
+    again = run(stacks=stacks)
+    own = run()
+    torch.cuda.synchronize()
+    assert torch.equal(got, again) and torch.equal(got, own)
+    want = BSM.block_sparse_grad_weight_plain(x, g, kk, nn, block=block, bm=8)
+    assert got.dtype == torch.float32 and got.shape == want.shape
+    err = float((got.double() - want.double()).abs().max())
+    assert err <= 1e-4 * _grad_scale(x, g, kk, nn, block), err
+    if lanes < block[1]:
+        assert float(got[:, :, lanes:].abs().max()) == 0.0
+        told = run(stacks=stacks, g_lanes=lanes)
+        torch.cuda.synchronize()
+        assert torch.equal(told, got)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("variant", ["misaligned", "misaligned_g_lanes", "narrow_tile"])
+def test_grad_weight_kernel_element_copies(dev, dtype, variant):
+    """The element-copy instances: operands at an address that is not 16-byte
+    aligned (all lanes, or g zero past 12 lanes and ``g_lanes=12``), or a
+    (6, 20) tile whose rows are not whole 16-byte units (21 tiles a stack);
+    same bars as the 16-byte path."""
+    block = (6, 20) if variant == "narrow_tile" else (16, 128)
+    lanes = 12 if variant == "misaligned_g_lanes" else block[1]
+    x, g, kk, nn = _stack_case(1000, block, dtype, "multi", lanes, 7, dev)
+    if variant != "narrow_tile":
+        def shift(t):
+            buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=dev)
+            out = buf[1:].view(t.shape)
+            out.copy_(t)
+            return out
+        x, g = shift(x), shift(g)
+        assert x.data_ptr() % 16 and g.data_ptr() % 16
+    got = BSM.block_sparse_grad_weight(x, g, kk, nn, block=block, bm=8, g_lanes=lanes)
+    again = BSM.block_sparse_grad_weight(x, g, kk, nn, block=block, bm=8, g_lanes=lanes)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    want = BSM.block_sparse_grad_weight_plain(x, g, kk, nn, block=block, bm=8)
+    err = float((got.double() - want.double()).abs().max())
+    assert err <= 1e-4 * _grad_scale(x, g, kk, nn, block), err
+
+
+def test_grad_weight_refuses_g_lanes_out_of_range(dev):
+    x, g, kk, nn = _grad_case(256, (16, 128), torch.float32, True, 1, dev)
+    for bad in (0, 129):
+        with pytest.raises(ValueError, match="g_lanes must be"):
+            BSM.block_sparse_grad_weight(x, g, kk, nn, block=(16, 128), bm=128, g_lanes=bad)
+
+
+def test_grad_weight_refuses_a_malformed_stack_table(dev):
+    x, g, kk, nn = _grad_case(256, (16, 128), torch.float32, True, 1, dev)
+    good = torch.from_numpy(BSM.grad_weight_stacks(kk.cpu().numpy(), nn.cpu().numpy(), 16))
+    for bad in (good.to(dev)[:, :4], good.to(dev).long(), good,
+                torch.zeros((kk.shape[0] + 1, 8), dtype=torch.int32, device=dev)):
+        with pytest.raises(ValueError, match="stacks must be"):
+            BSM.block_sparse_grad_weight(x, g, kk, nn, block=(16, 128), bm=128, stacks=bad)
 
 
 # --- K4: dense int8 matmul -------------------------------------------------

@@ -93,12 +93,98 @@ def test_grad_weight_wrapper_contract():
 @pytest.mark.parametrize("M,L", [(131072, 16), (131072, 2), (8192, 162),
                                  (128, 1), (1000, 300)])
 def test_grad_weight_split_is_fixed_and_covers_rows(M, L):
+    """``L`` counts the kernel's blocks along the tiles: its stacks."""
     for n_sms in (132, 114, 1):
         s, chunk = TB.grad_weight_split(M, L, n_sms)
         assert chunk % TB.GRAD_W_SLICE_M == 0
         assert (s - 1) * chunk < M <= s * chunk
         assert s <= max(1, -(-TB.GRAD_W_BLOCKS_PER_SM * n_sms // L))
         assert (s, chunk) == TB.grad_weight_split(M, L, n_sms)
+
+
+@pytest.mark.parametrize("bk,L,n_cols", [(16, 14, 2), (16, 198, 6), (8, 112, 6),
+                                         (128, 8, 1), (6, 50, 3), (256, 5, 2)])
+def test_grad_weight_stacks_cover_every_tile_once(bk, L, n_cols):
+    """The kernel's stack table: every live tile in exactly one row, a row's
+    tiles all of one output column and at most stack_width(bk) of them (-1
+    after), columns ascending, a column's tiles in the caller's order, as
+    few rows as the columns need; the same table on every call."""
+    rs = np.random.RandomState(L + bk)
+    nn = rs.randint(n_cols, size=L).astype(np.int32)
+    kk = rs.randint(64, size=L).astype(np.int32)
+    tab = TB.grad_weight_stacks(kk, nn, bk)
+    width = TB.stack_width(bk)
+    assert width == max(1, TB.GRAD_W_STACK_ROWS // bk)
+    assert tab.dtype == np.int32 and tab.shape[1] == width
+    counts = np.bincount(nn, minlength=n_cols)
+    assert tab.shape[0] == sum(-(-int(c) // width) for c in counts)
+    seen = []
+    for row in tab:
+        live = row[row >= 0]
+        assert np.all(row[len(live):] == -1) and len(live) >= 1
+        assert len(set(nn[live].tolist())) == 1
+        seen.extend(live.tolist())
+    assert sorted(seen) == list(range(L))
+    cols = [int(nn[row[0]]) for row in tab]
+    assert cols == sorted(cols)
+    for n in range(n_cols):                       # caller's order within a column
+        assert [l for l in seen if nn[l] == n] == np.flatnonzero(nn == n).tolist()
+    np.testing.assert_array_equal(tab, TB.grad_weight_stacks(kk, nn, bk))
+
+
+def test_grad_weight_cpu_ignores_the_stack_table():
+    """On the CPU the wrapper runs the plain version whether or not the
+    bind's stack table is passed."""
+    x, g, kk, nn = _case(64, 64, 256, (16, 128), 5, seed=3)
+    stacks = _t(TB.grad_weight_stacks(kk, nn, 16))
+    a = TB.block_sparse_grad_weight(_t(x), _t(g), _t(kk), _t(nn), block=(16, 128), bm=64)
+    b = TB.block_sparse_grad_weight(_t(x), _t(g), _t(kk), _t(nn), block=(16, 128), bm=64,
+                                    stacks=stacks)
+    assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("kx,cin,cout", [(3, 16, 16), (1, 16, 32), (3, 32, 64)])
+@pytest.mark.parametrize("packed", [False, True])
+def test_conv_output_gradient_is_zero_past_output_lanes(kx, cin, cout, packed):
+    """The trainable conv's backward packs dY onto the layout's 128-lane
+    columns as the transpose of ``unpack_output``: every lane past the
+    layout's ``output_lanes`` (12 filters unpacked, 10 groups of 12 packed)
+    is exactly zero in every column, so the weight-gradient kernel may skip
+    them (``g_lanes``); unpacked, 2 of a column's 16 n8 lane tiles hold
+    values."""
+    from repro_torch.core.groups import fpga_conv_groups
+    from repro_torch.sparse.conv_plan import conv_gemm_layout
+    spec = fpga_conv_groups((kx, kx, cin, cout), 12)
+    layout = conv_gemm_layout(spec, packed=packed)
+    lanes, bn = layout.output_lanes, layout.block[1]
+    assert lanes == (120 if packed else 12)
+    dy = torch.from_numpy(np.random.RandomState(cout).randn(2, 4, 4, cout).astype(np.float32))
+    with torch.enable_grad():
+        o2 = torch.zeros((32, layout.n_packed), requires_grad=True)
+        g2d, = torch.autograd.grad(layout.unpack_output(o2, (2, 4, 4)), o2, dy)
+    g3 = g2d.reshape(32, -1, bn)
+    assert bool((g3[:, :, lanes:] == 0).all())
+    assert bool((g3[:, 0, :lanes] != 0).any())
+    if not packed:
+        n8_live = (g3.abs().reshape(32, -1, bn // 8, 8).sum((0, 3)) > 0).sum(1)
+        assert int(n8_live.max()) == 2
+
+
+def test_grad_weight_cpu_takes_g_lanes():
+    """On the CPU ``g_lanes`` is a promise about ``g`` the plain version
+    does not need: the result is the same with or without it, through the
+    wrapper and through the bind's ``dw_fn``."""
+    x, g, kk, nn = _case(64, 64, 256, (16, 128), 4, seed=4)
+    g.reshape(64, 2, 128)[:, :, 12:] = 0.0
+    a = TB.block_sparse_grad_weight(_t(x), _t(g), _t(kk), _t(nn), block=(16, 128), bm=64)
+    b = TB.block_sparse_grad_weight(_t(x), _t(g), _t(kk), _t(nn), block=(16, 128), bm=64,
+                                    g_lanes=12)
+    assert torch.equal(a, b) and float(a[:, :, 12:].abs().max()) == 0.0
+    tm = np.zeros((4, 2), bool)
+    tm[kk, nn] = True
+    dw = TO.make_block_sparse_grad_weight(tm, (16, 128), bm=64)(_t(x), _t(g))
+    dw12 = TO.make_block_sparse_grad_weight(tm, (16, 128), bm=64, g_lanes=12)(_t(x), _t(g))
+    assert torch.equal(dw, dw12)
 
 
 @pytest.mark.parametrize("density", [0.0, 0.4, 1.0])
