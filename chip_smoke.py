@@ -7,7 +7,8 @@ Run ``python3 chip_smoke.py`` from the repository root. It
    checks with ``cuobjdump -sass`` that every instance of the implicit conv
    kernel (K2) holds tensor-core instructions: ``IMMA`` in the int8 ones,
    ``HMMA`` in the f32 (3xTF32) and bf16 ones; and ``HMMA`` in every
-   instance of the weight-gradient kernel (K3), f32 and bf16,
+   instance of the weight-gradient kernel (K3) and of the block-sparse
+   matmul's tensor-core kernel (K1), f32 and bf16,
 2. holds each kernel against its plain PyTorch version on the GPU at the
    layer shapes of the full-width ``ResNetConfig()`` (bit equality for int8
    outputs and skip counters, <= 1e-4 for f32, K2's f32 instance also
@@ -17,7 +18,11 @@ Run ``python3 chip_smoke.py`` from the repository root. It
    device, host-side wrapper included); the representative geometry also
    at batch 1, serving's smallest bucket; K2's f32 instance again at the
    training batch (128) at every layer geometry in both layouts, the shapes
-   the training forward launches (``kernels_f32_train``),
+   the training forward launches (``kernels_f32_train``); K3 there too
+   (``kernels_grad_weight``); and K1's f32 dX as the training backward
+   launches it, on the transposed plan with the layout's lane count, at
+   every geometry past conv0 in both layouts (``kernels_dx_train``, beside
+   ``matmul(g, Wpᵀ)``),
 3. serves the full-width, HAPM-pruned (0.5), random-weight network through
    ``CnnServer`` in both tile layouts (implicit kernel on all 21 layers), the
    materializing contract, the default command-line contract and every rung
@@ -65,7 +70,9 @@ fixed point), each counted from zero just before it is driven;
 (``streamed``, ``int8``) and f32 instances at the representative geometry,
 streamed at batch 1 in both layouts, each beside its bound and the cuDNN
 yardstick, and f32 at the training batch in both layouts
-(``f32_batch128``). The ``timing`` phase gives each bucket's device time per kernel
+(``f32_batch128``). K1's ``by_mode`` has its int8 (``streamed``) and f32
+forward rows there and its f32 dX at the training batch in both layouts
+(``f32_dx_batch128``, ``f32_dx_batch128_packed``). The ``timing`` phase gives each bucket's device time per kernel
 (``device_ms_by_kernel``). The pricing path's times and GOP/s for the FPGA
 boards are outputs of the cycle model, not times on the card.
 """
@@ -109,6 +116,7 @@ from repro_torch.kernels.ops import (_pad_rows, fixed_point_matmul,
 from repro_torch.launch import quickstart, serve_cnn, train_cnn
 from repro_torch.launch.serve_cnn import CnnServer
 from repro_torch.models import cnn
+from repro_torch.sparse.block_mask import transpose_plan
 from repro_torch.sparse.conv_plan import (adaptive_bm, conv_gemm_layout,
                                           plan_from_tile_mask)
 from repro_torch.train import cnn_training
@@ -152,6 +160,7 @@ PATH_KERNELS = {
 F32_TOL = 1e-4          # f32 kernels vs plain: summation order differs
 LOGIT_TOL = 1e-5        # int8 contracts: convs exact, only the head's mean+matmul differs
 GRAD_W_REL_TOL = 1e-4   # K3 vs plain: x 1e-4 of max(|x|^T |g|) over the live tiles
+DX_REL_TOL = 1e-4       # K1's dX vs plain: x 1e-4 of max(|g| |W^T|) over live columns
 GRAD_REL_TOL = 1e-2     # f32 training grads through the kernels vs dense autograd in
                         # f64, per leaf, x the leaf's largest f64 gradient; on an
                         # H100 the kernels read at most 5.4e-3 (a BN bias) and the
@@ -182,22 +191,25 @@ def gpu_name_and_limit() -> str:
 
 # K2's instances, by the name of their kernel templates: int8 codes, and the
 # f32 / bf16 operands (told apart by the bf16 type in the mangled name);
-# K3's (f32 / bf16 operands; 16-byte or element copies; narrow or wide lanes)
+# K3's and K1's float ones (f32 / bf16 operands; 16-byte or element copies;
+# narrow or wide lanes)
 K2_INT8_KERNEL = "implicit_conv_kernel_imma"
 K2_FLOAT_KERNEL = "implicit_conv_kernel"
 K3_KERNEL = "grad_weight_stack_kernel"
+K1_FLOAT_KERNEL = "block_sparse_matmul_mma_kernel"
 
 
 def tensor_core_instances() -> dict:
     """{"int8": {instance: IMMA instructions}, "f32": {instance: HMMA
-    instructions}, "bf16": {...}} for K2 and {"k3_f32": ..., "k3_bf16": ...}
-    for K3, from ``cuobjdump -sass`` of the built library. Raises unless
-    each of the four int8 instances of K2 (one per m16 tiles per block)
-    holds integer tensor-core (IMMA) instructions, each of the four f32 and
-    four bf16 instances holds float ones (HMMA), and each of K3's four f32
-    and four bf16 instances (16-byte or element copies, narrow or wide lane
-    runs) holds HMMA: the proof that all of K2's and K3's products run on
-    the tensor cores."""
+    instructions}, "bf16": {...}} for K2, {"k3_f32": ..., "k3_bf16": ...}
+    for K3 and {"k1_f32": ..., "k1_bf16": ...} for K1's float instances,
+    from ``cuobjdump -sass`` of the built library. Raises unless each of the
+    four int8 instances of K2 (one per m16 tiles per block) holds integer
+    tensor-core (IMMA) instructions, each of the four f32 and four bf16
+    instances holds float ones (HMMA), and each of K3's and of K1's four f32
+    and four bf16 instances (16-byte or element copies, narrow or wide
+    lanes) holds HMMA: the proof that all of K2's and K3's products, and
+    those of K1's f32 and bf16 operands, run on the tensor cores."""
     tool = os.path.join(os.path.dirname(_build.find_nvcc()), "cuobjdump")
     sass = subprocess.run([tool, "-sass", str(_build.library_path())], text=True,
                           stdout=subprocess.PIPE, stderr=subprocess.STDOUT, timeout=300)
@@ -220,12 +232,14 @@ def tensor_core_instances() -> dict:
     for kind, op in (("int8", "IMMA"), ("f32", "HMMA"), ("bf16", "HMMA")):
         if len(out[kind]) < 4 or not all(out[kind].values()):
             raise AssertionError(f"K2's {kind} instances lack {op} instructions: {k2}")
-    k3 = {f: n["HMMA"] for f, n in counts.items() if K3_KERNEL in f}
-    out["k3_bf16"] = {f: n for f, n in k3.items() if "bfloat16" in f}
-    out["k3_f32"] = {f: n for f, n in k3.items() if "bfloat16" not in f}
-    for kind in ("k3_f32", "k3_bf16"):
-        if len(out[kind]) < 4 or not all(out[kind].values()):
-            raise AssertionError(f"K3's {kind[3:]} instances lack HMMA instructions: {k3}")
+    for tag, name in (("k3", K3_KERNEL), ("k1", K1_FLOAT_KERNEL)):
+        found = {f: n["HMMA"] for f, n in counts.items() if name in f}
+        out[f"{tag}_bf16"] = {f: n for f, n in found.items() if "bfloat16" in f}
+        out[f"{tag}_f32"] = {f: n for f, n in found.items() if "bfloat16" not in f}
+        for kind in (f"{tag}_f32", f"{tag}_bf16"):
+            if len(out[kind]) < 4 or not all(out[kind].values()):
+                raise AssertionError(f"{tag.upper()}'s {kind[3:]} instances lack HMMA "
+                                     f"instructions: {found}")
     return out
 
 
@@ -494,7 +508,7 @@ def compare(name: str, got, want, case) -> float:
 # device-side kernel names of this repo's CUDA kernels, by the kernel they
 # belong to
 OWN_KERNELS = {"implicit_block_sparse_conv": ("implicit_conv_kernel",),
-               "block_sparse_matmul": ("block_sparse_matmul_kernel",),
+               "block_sparse_matmul": ("block_sparse_matmul_kernel", K1_FLOAT_KERNEL),
                "block_sparse_grad_weight": (K3_KERNEL, "grad_weight_reduce_kernel"),
                "int8_matmul": ("int8_matmul_kernel",)}
 
@@ -865,6 +879,7 @@ def make_grad_case(geom, packed: bool, batch: int, n_cu: int, device,
     t_o_3x = 3 * 2 * M * live_elems / PEAK_TF32_S
     return {"name": name, "packed": packed, "batch": batch, "H": H, "stride": stride,
             "k": k, "cin": cin, "cout": cout, "M": M, "block": (bk, bn), "bm": bm,
+            "spec": spec, "layout": layout, "group_mask": gm.reshape(-1),
             "tile_mask": tm, "live_tiles": L, "x": p2d.contiguous(), "g": g2d.contiguous(),
             "kk": torch.from_numpy(live[:, 0].astype(np.int32)).to(device),
             "nn": torch.from_numpy(live[:, 1].astype(np.int32)).to(device),
@@ -951,6 +966,102 @@ def phase_kernels_grad_weight(cfg, device, batch: int, reps: int, plain_reps: in
     emit("kernels_grad_weight", batch=batch, rel_tol=GRAD_W_REL_TOL, reps=reps,
          plain_reps=plain_reps, cases=rows)
     return worst, rep
+
+
+# ---------------------------------------------------------------------------
+# phase: K1's dX at the training batch against its plain version
+# ---------------------------------------------------------------------------
+
+def phase_kernels_dx_train(cfg, device, batch: int, reps: int, plain_reps: int, worst,
+                           by_mode):
+    """K1's f32 instance as the training backward launches it for dX (as
+    ``kernels/ops.py``'s ``_BoundBlockSparseMatmul.backward`` does): dP = g @
+    Wpᵀ with the packed masked weight transposed, on the transposed plan,
+    ``x_lanes`` = the layout's ``output_lanes``, at every layer geometry past
+    conv0 (the convs whose dX the backward computes) in both layouts at
+    training batch ``batch``, g and the tile mask as ``make_grad_case`` makes
+    them. Each row within DX_REL_TOL x max(|g| |Wpᵀ|) over the live output
+    columns of the plain version, two launches bit-identical, the output
+    finite; timed beside its bounds and ``matmul(g, Wpᵀ)`` (f32, TF32 off).
+    Raises ``worst["block_sparse_matmul"]`` to the phase's worst error; adds
+    s0b0/conv1's rows to ``by_mode`` (``f32_dx_batch128``,
+    ``f32_dx_batch128_packed``)."""
+    rs = np.random.RandomState(23)
+    rows = []
+    rep_geom = (cfg.image_size, 1, 3, cfg.widths[0], cfg.widths[0])
+    prev_tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        for geom in layer_geometries(cfg)[1:]:
+            for packed in (False, True):
+                rows.append(dx_train_row(geom, packed, batch, device, rs, reps, plain_reps))
+                row = rows[-1]
+                worst["block_sparse_matmul"] = max(worst["block_sparse_matmul"],
+                                                   row["max_abs_err"])
+                if geom[1:] == rep_geom:
+                    by_mode[f"f32_dx_batch{batch}{'_packed' if packed else ''}"] = row
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev_tf32
+    emit("kernels_dx_train", batch=batch, rel_tol=DX_REL_TOL, reps=reps,
+         plain_reps=plain_reps, cases=rows)
+
+
+def dx_train_row(geom, packed, batch, device, rs, reps, plain_reps) -> dict:
+    """One row of ``phase_kernels_dx_train`` (TF32 already off)."""
+    name, H, stride, k, cin, cout = geom
+    c = make_grad_case(geom, packed, batch, N_CU, device, rs)
+    layout, tm = c["layout"], c["tile_mask"]
+    w = torch.from_numpy((rs.randn(k, k, cin, cout) * np.sqrt(2.0 / (k * k * cin))
+                          ).astype(np.float32)).to(device)
+    wt = layout.pack_weight(c["spec"].expand(c["group_mask"]).to(device) * w).t().contiguous()
+    t_plan = transpose_plan(plan_from_tile_mask(tm, layout.block), tm)
+    t_idx = torch.from_numpy(t_plan.idx).to(device)
+    t_cnt = torch.from_numpy(t_plan.cnt).to(device)
+    g, lanes = c["g"], layout.output_lanes
+    kw = dict(block=t_plan.block, bm=c["bm"], x_lanes=lanes)
+    kern = lambda: BSM.block_sparse_matmul(g, wt, t_idx, t_cnt, **kw)
+    plain = lambda: BSM.block_sparse_matmul_plain(g, wt, t_idx, t_cnt, **kw)
+    label = f"block_sparse_matmul dX {name} packed={packed}"
+    got = kern()
+    again = kern()
+    sync(device)
+    want = plain()
+    if not torch.equal(got, again):
+        raise AssertionError(f"{label}: two launches differ")
+    if not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"{label}: non-finite output")
+    bk_t, bn_t = t_plan.block
+    live_cols = torch.repeat_interleave(t_cnt > 0, bn_t)
+    scale = float((g.abs() @ wt.abs())[:, live_cols].max())
+    err = float((got.double() - want.double()).abs().max())
+    if err > DX_REL_TOL * scale:
+        raise AssertionError(f"{label}: max abs err {err} > {DX_REL_TOL} x {scale}")
+    # the bound counts what dX needs: g's lanes below x_lanes in the K-tiles
+    # with a live tile, read once over the M real rows; dP (the packed patch
+    # gradient) written once; the live weight tiles' rows below x_lanes; and
+    # 2*M*x_lanes*bn operations a live tile. The padded figure charges every
+    # row padded to bm and whole tiles.
+    M, Mp, n_out, L = c["M"], g.shape[0], wt.shape[1], c["live_tiles"]
+    n_g = int(tm.any(axis=0).sum())     # K-tiles of the transposed plan in use
+    t_b = 4 * (M * n_g * lanes + M * n_out + L * lanes * bn_t) / PEAK_BYTES_S
+    ops = 2 * M * L * lanes * bn_t
+    t_o = ops / PEAK_OPS_S["f32"]
+    t_b_pad = 4 * (Mp * n_g * bk_t + Mp * n_out + L * bk_t * bn_t) / PEAK_BYTES_S
+    t_o_pad = 2 * Mp * L * bk_t * bn_t / PEAK_OPS_S["f32"]
+    row = {"name": name, "packed": packed, "batch": batch, "H": H, "stride": stride, "k": k,
+           "cin": cin, "cout": cout, "M": M, "bm": c["bm"], "block": list(t_plan.block),
+           "x_lanes": lanes, "live_tiles": L, "live_columns": int((t_cnt > 0).sum()),
+           "max_abs_err": err, "tol": DX_REL_TOL * scale, "bit_identical": True,
+           "bound_ms": max(t_b, t_o) * 1e3, "bound_by": "bytes" if t_b >= t_o else "operations",
+           "bound_3xtf32_ms": max(t_b, 3 * ops / PEAK_TF32_S) * 1e3,
+           "bound_padded_ms": max(t_b_pad, t_o_pad) * 1e3}
+    row["ms"] = device_ms(kern, device, reps)
+    row["call_ms"] = time_ms(kern, device, reps)
+    row["plain_ms"] = time_ms(plain, device, plain_reps, warmup=1)
+    # the dense product g @ Wpᵀ, f32: a yardstick only
+    row["library_ms"] = device_ms(lambda: torch.matmul(g, wt), device, reps)
+    row["ms_div_library"] = row["ms"] / row["library_ms"]
+    return row
 
 
 # ---------------------------------------------------------------------------
@@ -1389,13 +1500,16 @@ def phase_quickstart(device):
                                    "hapm_no_dsb": no_dsb.mean_time_per_image_s * 1e3})
 
 
-def kernels_line(paths, worst, rep, rep_gw, rep_i8, by_mode):
+def kernels_line(paths, worst, rep, rep_gw, rep_i8, by_mode, k1_by_mode):
     """The ``kernels`` list of the last-but-one line: every ported kernel at
     its representative shape, with its launches on each main path
     (``paths``: {path: launch counts of its run}); K2 also gives its
     instances apart (``by_mode``: the representative geometry unpacked in
     each mode at the kernels batch, and streamed at batch 1 in both
-    layouts), each beside its bound and the cuDNN yardstick."""
+    layouts), each beside its bound and the cuDNN yardstick; K1 gives its
+    int8 (``streamed``) and f32 forward rows at the kernels batch and its f32
+    dX at the training batch in both layouts (``k1_by_mode``), the dX beside
+    ``matmul(g, Wpᵀ)``."""
     tag = {"block_sparse_matmul": "k1", "implicit_block_sparse_conv": "k2"}
     shape_keys = ("name", "packed", "batch", "H", "stride", "k", "cin", "cout")
     timing = ("ms", "call_ms", "plain_ms", "bound_ms", "bound_by", "bound_padded_ms",
@@ -1416,6 +1530,14 @@ def kernels_line(paths, worst, rep, rep_gw, rep_i8, by_mode):
                     m: {"packed": r["packed"], "batch": r["batch"],
                         **{k: r[f"k2_{k}"] for k in timing[:-1]},
                         "library_ms": r["library_ms"]} for m, r in by_mode.items()}
+            else:
+                lines[-1]["by_mode"] = {
+                    m: {"packed": r["packed"], "batch": r["batch"],
+                        **{k: r[k if "x_lanes" in r else f"k1_{k}"] for k in timing[:-1]},
+                        "library_ms": r["library_ms"],
+                        **({"x_lanes": r["x_lanes"], "block": r["block"]}
+                           if "x_lanes" in r else {})}
+                    for m, r in k1_by_mode.items()}
         elif kname == "int8_matmul":
             lines.append({**common, **{k: rep_i8[k] for k in timing},
                           "shape": {k: rep_i8[k] for k in ("shape", "M", "K", "N", "real")}})
@@ -1460,11 +1582,14 @@ def main(argv=None) -> int:
         str(_build.library_path()), ROOT), flags=list(_build.NVCC_FLAGS),
          k2_int8_imma_instructions=mma["int8"], k2_f32_hmma_instructions=mma["f32"],
          k2_bf16_hmma_instructions=mma["bf16"], k3_f32_hmma_instructions=mma["k3_f32"],
-         k3_bf16_hmma_instructions=mma["k3_bf16"])
+         k3_bf16_hmma_instructions=mma["k3_bf16"], k1_f32_hmma_instructions=mma["k1_f32"],
+         k1_bf16_hmma_instructions=mma["k1_bf16"])
     worst, rep, k2_by_mode = phase_kernels(cfg, device, kernel_batch, reps, plain_reps)
     phase_kernels_f32_train(cfg, device, TRAIN_BATCH, reps, plain_reps, worst, k2_by_mode)
     worst["block_sparse_grad_weight"], rep_gw = phase_kernels_grad_weight(
         cfg, device, TRAIN_BATCH, reps, plain_reps)
+    k1_by_mode = {m: k2_by_mode[m] for m in ("streamed", "f32")}
+    phase_kernels_dx_train(cfg, device, TRAIN_BATCH, reps, plain_reps, worst, k1_by_mode)
     worst["int8_matmul"], rep_i8 = phase_kernels_int8_matmul(device, reps, plain_reps)
 
     # pruned once on the host, so both servers hold identical weights
@@ -1537,7 +1662,7 @@ def main(argv=None) -> int:
     emit("done", seconds=time.time() - t_start)
     print(card, flush=True)
     print(json.dumps({"kernels": kernels_line(paths, worst, rep, rep_gw, rep_i8,
-                                              k2_by_mode)}),
+                                              k2_by_mode, k1_by_mode)}),
           flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

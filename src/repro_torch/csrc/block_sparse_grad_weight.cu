@@ -95,23 +95,6 @@ template <typename T>
 constexpr size_t kGwSmemBytes =
     kGwRingBytes<T> + (kGwStages * kGwWarps + 2 * kGwRows) * sizeof(int);
 
-// The copy unit of a staging path: 16 bytes through cp.async, or one element.
-template <typename T, bool kVec>
-struct GwUnit {
-  using type = uint4;
-  static constexpr int elems = 16 / sizeof(T);
-};
-template <>
-struct GwUnit<float, false> {
-  using type = uint32_t;
-  static constexpr int elems = 1;
-};
-template <>
-struct GwUnit<__nv_bfloat16, false> {
-  using type = uint16_t;
-  static constexpr int elems = 1;
-};
-
 // does a unit hold a value other than +-0 (NaN counts as a value)?
 template <typename T>
 __device__ __forceinline__ bool unit_nonzero(uint4 v) {
@@ -123,23 +106,13 @@ __device__ __forceinline__ bool unit_nonzero(uint32_t v) { return (v & 0x7ffffff
 template <typename T>
 __device__ __forceinline__ bool unit_nonzero(uint16_t v) { return (v & 0x7fffu) != 0; }
 
-template <typename T, bool kVec>
-__device__ __forceinline__ void copy_unit(T* dst, const T* src, bool ok) {
-  using Unit = typename GwUnit<T, kVec>::type;
-  if constexpr (kVec) {
-    cp_async16_zfill(dst, src, ok ? 16 : 0);
-  } else {
-    *reinterpret_cast<Unit*>(dst) = ok ? *reinterpret_cast<const Unit*>(src) : Unit(0);
-  }
-}
-
 // A thread's part of every slice copy: one unit column u = tid % UR of x's
 // stacked columns and of g's lanes (UR units make 128 columns), in rows
 // tid / UR + RP*i. Fixed for the block, so the slice loop does no index
 // arithmetic beyond a row offset.
 template <typename T, bool kVec>
 struct GwCopyPlan {
-  static constexpr int U = GwUnit<T, kVec>::elems;
+  static constexpr int U = CopyUnit<T, kVec>::elems;
   static constexpr int UR = kMaxBn / U;                   // units per row
   static constexpr int RP = kGwThreads / UR;              // rows per pass
   static constexpr int kPasses = kGwSliceM / RP;
@@ -181,7 +154,7 @@ struct GwCopyPlan {
   // a nonzero value in lanes 8n .. 8n+7. Reads only what this thread copied,
   // so it needs cp.async.wait_group and no barrier.
   __device__ __forceinline__ uint32_t scan(const T* gslot, int rows) const {
-    using Unit = typename GwUnit<T, kVec>::type;
+    using Unit = typename CopyUnit<T, kVec>::type;
     if (gdst < 0) return 0;
     bool nz = false;
 #pragma unroll

@@ -3,6 +3,9 @@
 // operands through a ring in shared memory.
 #pragma once
 
+#include <cuda_bf16.h>
+#include <stdint.h>
+
 namespace hapm {
 
 // V bytes (4, 8 or 16) from src to dst, through L1
@@ -33,6 +36,35 @@ __device__ __forceinline__ void cp_async_wait() {
 __device__ __forceinline__ void cp_async_wait_all() {
   cp_async_commit();
   cp_async_wait<0>();
+}
+
+// The copy unit of a staging path: 16 bytes through cp.async, or one element.
+template <typename T, bool kVec>
+struct CopyUnit {
+  using type = uint4;
+  static constexpr int elems = 16 / sizeof(T);
+};
+template <>
+struct CopyUnit<float, false> {
+  using type = uint32_t;
+  static constexpr int elems = 1;
+};
+template <>
+struct CopyUnit<__nv_bfloat16, false> {
+  using type = uint16_t;
+  static constexpr int elems = 1;
+};
+
+// One unit from src to dst, or zeros where !ok (src is then not read):
+// cp.async for 16-byte units, a plain load and store for an element.
+template <typename T, bool kVec>
+__device__ __forceinline__ void copy_unit(T* dst, const T* src, bool ok) {
+  using Unit = typename CopyUnit<T, kVec>::type;
+  if constexpr (kVec) {
+    cp_async16_zfill(dst, src, ok ? 16 : 0);
+  } else {
+    *reinterpret_cast<Unit*>(dst) = ok ? *reinterpret_cast<const Unit*>(src) : Unit(0);
+  }
 }
 
 }  // namespace hapm

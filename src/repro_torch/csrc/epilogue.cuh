@@ -1,5 +1,5 @@
-// The flush epilogue shared by both block-sparse kernels, plus the small
-// element helpers they have in common.
+// The flush epilogue shared by the kernels that flush an output tile, plus
+// the small element helpers they have in common.
 //
 // Counterpart of `flush_epilogue` in the JAX package
 // (src/repro/kernels/block_sparse_matmul.py): dequant -> bias -> ReLU ->
@@ -21,9 +21,10 @@ namespace hapm {
 
 constexpr float kInt8MaxCode = 127.0f;
 
-// Thread layout of both kernels: 16 x 16 threads per block; thread
-// (ty, tx) owns output rows ty + 16*a (a < RM) and columns tx + 16*b
-// (b < kColsPerThread) of the (bm <= 128, bn <= 128) output tile.
+// Thread layout of the CUDA-core kernels (K1's int8 instance, K4): 16 x 16
+// threads per block; thread (ty, tx) owns output rows ty + 16*a (a < RM) and
+// columns tx + 16*b (b < kColsPerThread) of the (bm <= 128, bn <= 128)
+// output tile.
 constexpr int kTx = 16;
 constexpr int kTy = 16;
 constexpr int kThreads = kTx * kTy;
@@ -70,18 +71,10 @@ __device__ __forceinline__ void store_out(void* out, size_t o, float v, int out_
   }
 }
 
-// Operand element -> accumulator type (f32 for float operands, int32 for
-// int8 codes).
-template <typename Acc>
-__device__ __forceinline__ Acc to_acc(float v) { return static_cast<Acc>(v); }
-template <typename Acc>
-__device__ __forceinline__ Acc to_acc(__nv_bfloat16 v) { return static_cast<Acc>(__bfloat162float(v)); }
+// int8 code -> int32 accumulator, and acc + a*b as an exact int32
+// multiply-add (K1's int8 instance)
 template <typename Acc>
 __device__ __forceinline__ Acc to_acc(int8_t v) { return static_cast<Acc>(v); }
-
-// acc + a*b: one f32 FMA (full f32, no tensor cores, no TF32), or an exact
-// int32 multiply-add.
-__device__ __forceinline__ float mac(float a, float b, float c) { return fmaf(a, b, c); }
 __device__ __forceinline__ int mac(int a, int b, int c) { return a * b + c; }
 
 // Flush the thread's RM x kColsPerThread accumulators of output tile
@@ -101,6 +94,58 @@ __device__ __forceinline__ void flush_tile(const Acc (&acc)[RM][kColsPerThread],
       const int n = j * bn + c;
       const float v = flush_epilogue<Acc>(acc[a][b], ep, n);
       store_out<T>(out, (static_cast<size_t>(i) * bm + r) * n_total + n, v, out_int8);
+    }
+  }
+}
+
+// Output kinds of flush_frags: f32, int8 codes, bf16.
+constexpr int kOutF32 = 0;
+constexpr int kOutI8 = 1;
+constexpr int kOutBF16 = 2;
+
+// Flush a thread's accumulator fragments: for its n8 tile n (at columns
+// c0 + 8*STEP*n; skipped where bit STEP*n of `skip` is set), columns c and
+// c + 1 (c0 = 2*(lane%4) + 8 * the first tile) of rows row0 and row0 + 8, each
+// value through the shared epilogue, the two columns written with one store
+// (2 bytes of int8 codes, 4 of bf16 or 8 of f32) where both are in the tile
+// and aligned.
+template <int OUT, int NTW, int STEP, typename Acc>
+__device__ __forceinline__ void flush_frags(const Acc (&acc)[NTW][4], const Epilogue& ep,
+                                            void* out, size_t row0, int n_total, int rows_left,
+                                            int c0, int bn, unsigned skip) {
+  using StoreT = typename std::conditional<OUT == kOutBF16, __nv_bfloat16, int8_t>::type;
+#pragma unroll
+  for (int n = 0; n < NTW; ++n) {
+    const int c = c0 + 8 * STEP * n;
+    if (c >= bn) break;
+    if ((skip >> (STEP * n)) & 1u) continue;
+    const bool second = c + 1 < bn;
+    float v[2][2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      v[h][0] = flush_epilogue<Acc>(acc[n][2 * h], ep, c);
+      v[h][1] = second ? flush_epilogue<Acc>(acc[n][2 * h + 1], ep, c + 1) : 0.0f;
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      if (rows_left <= 8 * h) break;
+      const size_t o = row0 + static_cast<size_t>(8 * h) * n_total + c;
+      if (second && o % 2 == 0) {
+        if constexpr (OUT == kOutI8) {
+          const unsigned short pair = static_cast<unsigned short>(
+              static_cast<uint8_t>(static_cast<int8_t>(v[h][0])) |
+              (static_cast<uint8_t>(static_cast<int8_t>(v[h][1])) << 8));
+          *reinterpret_cast<unsigned short*>(static_cast<int8_t*>(out) + o) = pair;
+        } else if constexpr (OUT == kOutBF16) {
+          *reinterpret_cast<__nv_bfloat162*>(static_cast<__nv_bfloat16*>(out) + o) =
+              __floats2bfloat162_rn(v[h][0], v[h][1]);
+        } else {
+          *reinterpret_cast<float2*>(static_cast<float*>(out) + o) = make_float2(v[h][0], v[h][1]);
+        }
+      } else {
+        store_out<StoreT>(out, o, v[h][0], OUT == kOutI8);
+        if (second) store_out<StoreT>(out, o + 1, v[h][1], OUT == kOutI8);
+      }
     }
   }
 }

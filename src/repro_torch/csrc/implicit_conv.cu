@@ -392,58 +392,6 @@ __device__ __forceinline__ int gather4(const int8_t* win, bool valid, int off, i
   return static_cast<int>(b0 | (b1 << 8) | (b2 << 16) | (b3 << 24));
 }
 
-// Output kinds of flush_frags: f32, int8 codes, bf16.
-constexpr int kOutF32 = 0;
-constexpr int kOutI8 = 1;
-constexpr int kOutBF16 = 2;
-
-// Flush a thread's accumulator fragments: for its n8 tile n (at columns
-// c0 + 8*STEP*n; skipped where bit STEP*n of `skip` is set), columns c and
-// c + 1 (c0 = 2*tq + 8 * the first tile) of rows row0 and row0 + 8, each
-// value through the shared epilogue, the two columns written with one store
-// (2 bytes of int8 codes, 4 of bf16 or 8 of f32) where both are in the tile
-// and aligned.
-template <int OUT, int NTW, int STEP, typename Acc>
-__device__ __forceinline__ void flush_frags(const Acc (&acc)[NTW][4], const Epilogue& ep,
-                                            void* out, size_t row0, int n_total, int rows_left,
-                                            int c0, int bn, unsigned skip) {
-  using StoreT = typename std::conditional<OUT == kOutBF16, __nv_bfloat16, int8_t>::type;
-#pragma unroll
-  for (int n = 0; n < NTW; ++n) {
-    const int c = c0 + 8 * STEP * n;
-    if (c >= bn) break;
-    if ((skip >> (STEP * n)) & 1u) continue;
-    const bool second = c + 1 < bn;
-    float v[2][2];
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      v[h][0] = flush_epilogue<Acc>(acc[n][2 * h], ep, c);
-      v[h][1] = second ? flush_epilogue<Acc>(acc[n][2 * h + 1], ep, c + 1) : 0.0f;
-    }
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      if (rows_left <= 8 * h) break;
-      const size_t o = row0 + static_cast<size_t>(8 * h) * n_total + c;
-      if (second && o % 2 == 0) {
-        if constexpr (OUT == kOutI8) {
-          const unsigned short pair = static_cast<unsigned short>(
-              static_cast<uint8_t>(static_cast<int8_t>(v[h][0])) |
-              (static_cast<uint8_t>(static_cast<int8_t>(v[h][1])) << 8));
-          *reinterpret_cast<unsigned short*>(static_cast<int8_t*>(out) + o) = pair;
-        } else if constexpr (OUT == kOutBF16) {
-          *reinterpret_cast<__nv_bfloat162*>(static_cast<__nv_bfloat16*>(out) + o) =
-              __floats2bfloat162_rn(v[h][0], v[h][1]);
-        } else {
-          *reinterpret_cast<float2*>(static_cast<float*>(out) + o) = make_float2(v[h][0], v[h][1]);
-        }
-      } else {
-        store_out<StoreT>(out, o, v[h][0], OUT == kOutI8);
-        if (second) store_out<StoreT>(out, o + 1, v[h][1], OUT == kOutI8);
-      }
-    }
-  }
-}
-
 template <int MT>
 __global__ void __launch_bounds__(kImmaThreads, 2)
 implicit_conv_kernel_imma(const int8_t* __restrict__ xp, const int8_t* __restrict__ w,

@@ -123,7 +123,7 @@ def load() -> ctypes.CDLL:
         return _lib
     lib = ctypes.CDLL(str(build()))
     P, I = ctypes.c_void_p, ctypes.c_int
-    lib.hapm_block_sparse_matmul.argtypes = [P] * 8 + [I] * 9 + [P]
+    lib.hapm_block_sparse_matmul.argtypes = [P] * 8 + [I] * 10 + [P]
     lib.hapm_block_sparse_matmul.restype = I
     lib.hapm_implicit_block_sparse_conv.argtypes = [P] * 9 + [I] * 21 + [P]
     lib.hapm_implicit_block_sparse_conv.restype = I

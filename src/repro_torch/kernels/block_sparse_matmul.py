@@ -47,8 +47,8 @@ from .ref import int_matmul_exact
 # Q2.5 and Q3.4 share it — the sign bit plus 7 magnitude bits of an int8)
 INT8_MAX_CODE = 127.0
 
-# limits of the CUDA kernels' thread layout (16 x 16 threads, up to 8 rows
-# and 8 columns each)
+# limits of the CUDA kernels' output tile: 128 rows (8 warps of m16 rows, or
+# 16 x 16 threads of up to 8 rows each) by 128 lanes
 KERNEL_MAX_BM = 128
 KERNEL_MAX_BN = 128
 
@@ -175,6 +175,16 @@ def _check_operands(x, w, idx, cnt, block, bm):
     return M, K, N, bk, bn
 
 
+def _lane_count(name: str, lanes, width: int) -> int:
+    """A caller's promise that an operand is zero past ``lanes`` lanes of
+    every ``width``-lane tile: the count (default: all), refused outside
+    1..width."""
+    n = width if lanes is None else int(lanes)
+    if not 1 <= n <= width:
+        raise ValueError(f"{name} must be in 1..{width}, got {lanes}")
+    return n
+
+
 def block_sparse_matmul_plain(
     x: torch.Tensor,            # (M, K) f32/bf16, or int8 codes
     w: torch.Tensor,            # (K, N) same family as x
@@ -187,12 +197,17 @@ def block_sparse_matmul_plain(
     block: Tuple[int, int] = (128, 128),
     bm: int = 128,
     relu: bool = False,
+    x_lanes: Optional[int] = None,
 ) -> torch.Tensor:
     """The plain PyTorch version of :func:`block_sparse_matmul`: for every
     live K-tile, one product of the tile's x columns with the weight tiles
     of the output columns that visit it, accumulated in f32 (int32 for
-    codes) in ascending tile order, then the shared epilogue."""
+    codes) in ascending tile order, then the shared epilogue. With
+    ``x_lanes`` only the first ``x_lanes`` columns of each tile and the same
+    rows of its weights are multiplied: the same function for an ``x`` that
+    is zero past them."""
     M, K, N, bk, bn = _check_operands(x, w, idx, cnt, block, bm)
+    lanes = _lane_count("x_lanes", x_lanes, bk)
     acc_dtype, out_dtype = quantized_contract(x, w, scale, out_scale)
     scale, bias, out_scale = epilogue_rows(N, x.device, scale=scale, bias=bias,
                                            out_scale=out_scale)
@@ -200,8 +215,8 @@ def block_sparse_matmul_plain(
     acc = torch.zeros((M, nNb, bn), dtype=acc_dtype, device=x.device)
     wt = w.reshape(K // bk, bk, nNb, bn)
     for t, cols in live_columns_by_tile(idx, cnt).items():
-        xt = x[:, t * bk:(t + 1) * bk]
-        wc = wt[t][:, cols, :].reshape(bk, len(cols) * bn)
+        xt = x[:, t * bk:t * bk + lanes]
+        wc = wt[t][:lanes, cols, :].reshape(lanes, len(cols) * bn)
         if acc_dtype == torch.int32:
             prod = int_matmul_exact(xt, wc)
         else:
@@ -223,16 +238,22 @@ def block_sparse_matmul(
     block: Tuple[int, int] = (128, 128),
     bm: int = 128,
     relu: bool = False,
+    x_lanes: Optional[int] = None,         # x is zero past these lanes of a K-tile
 ) -> torch.Tensor:
     """-> (M, N). A CUDA ``x`` launches the CUDA kernel on the current
     stream (no synchronize) or raises; a CPU ``x`` runs
-    :func:`block_sparse_matmul_plain`."""
+    :func:`block_sparse_matmul_plain`. ``x_lanes`` (default: all ``bk``) is
+    the caller's promise that ``x`` is zero past that many lanes of every
+    ``bk``-lane K-tile, as the packed output gradient of a conv layout is
+    past its ``output_lanes`` (the dX on the transposed plan): the f32/bf16
+    kernel then reads and multiplies none of them."""
     if not x.is_cuda:
         return block_sparse_matmul_plain(x, w, idx, cnt, bias, scale,
                                          out_scale, block=block, bm=bm,
-                                         relu=relu)
+                                         relu=relu, x_lanes=x_lanes)
     global _launches
     M, K, N, bk, bn = _check_operands(x, w, idx, cnt, block, bm)
+    lanes = _lane_count("x_lanes", x_lanes, bk)
     _, out_dtype = quantized_contract(x, w, scale, out_scale)
     if x.dtype not in DTYPE_CODES:
         raise TypeError(f"block_sparse_matmul kernel takes f32/bf16/int8 "
@@ -259,7 +280,7 @@ def block_sparse_matmul(
         err = lib.hapm_block_sparse_matmul(
             ptr(x), ptr(w), ptr(idx), ptr(cnt), ptr(scale), ptr(bias),
             ptr(out_scale), ptr(out), M, K, N, bm, bk, bn, idx.shape[1],
-            DTYPE_CODES[x.dtype], int(relu),
+            DTYPE_CODES[x.dtype], int(relu), lanes,
             torch.cuda.current_stream(dev).cuda_stream)
     _build.check_launch(err, "block_sparse_matmul")
     _launches += 1
@@ -404,9 +425,7 @@ def block_sparse_grad_weight(
             raise ValueError(f"{name} is on {t.device}, x on {dev}")
     if kk.dtype != torch.int32 or nn.dtype != torch.int32:
         raise TypeError("kk and nn must be int32")
-    lanes = bn if g_lanes is None else int(g_lanes)
-    if not 1 <= lanes <= bn:
-        raise ValueError(f"g_lanes must be in 1..{bn}, got {g_lanes}")
+    lanes = _lane_count("g_lanes", g_lanes, bn)
     width = stack_width(bk)
     if stacks is not None and (
             stacks.device != dev or stacks.dtype != torch.int32

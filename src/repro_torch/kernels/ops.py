@@ -116,12 +116,17 @@ class KernelVJP(torch.autograd.Function):
 
 class _BoundBlockSparseMatmul:
     """The plans of one trainable block-sparse matmul: the forward table,
-    the transposed table for dX, the live-tile list for dW."""
+    the transposed table for dX, the live-tile list for dW. ``g_lanes``: the
+    caller's promise that the output gradient is zero past that many lanes of
+    every bn-lane column (a conv layout's ``output_lanes``); both backward
+    kernels then read none of them (``x_lanes`` of the dX, ``g_lanes`` of the
+    dW)."""
 
     def __init__(self, plan: BlockSparsePlan, tile_mask: np.ndarray, bm: int,
                  g_lanes: Optional[int] = None):
         t_plan = transpose_plan(plan, np.asarray(tile_mask))
         self.block, self.t_block, self.bm = plan.block, t_plan.block, bm
+        self.g_lanes = g_lanes
         self.tables = DeviceTables(idx=np.asarray(plan.idx, np.int32),
                                    cnt=np.asarray(plan.cnt, np.int32),
                                    t_idx=np.asarray(t_plan.idx, np.int32),
@@ -145,7 +150,7 @@ class _BoundBlockSparseMatmul:
             gp, M = _pad_rows(g2d, self.bm)
             dx = block_sparse_matmul(gp, w.t().contiguous(), t["t_idx"],
                                      t["t_cnt"], block=self.t_block,
-                                     bm=self.bm)[:M]
+                                     bm=self.bm, x_lanes=self.g_lanes)[:M]
             dx = dx.reshape(x.shape).to(x.dtype)
         if want_dw:
             dw = self.dw_fn(x.reshape(-1, x.shape[-1]), g2d).to(w.dtype)

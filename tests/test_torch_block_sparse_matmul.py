@@ -174,6 +174,66 @@ def test_make_block_sparse_matmul_pads_rows(lead, mode):
         np.testing.assert_array_equal(ty, jy)
 
 
+# (M, K, N, block, bm, x_lanes): the dX tiles of the unpacked 3x3 and 1x1
+# layouts and of the packed one (12 of 128 lanes, 120 of 128), one lane,
+# and a K-tile whose lane count is not a multiple of 8 or 16
+X_LANES_CASES = [
+    (64, 256, 64, (128, 16), 64, 12),
+    (32, 256, 32, (128, 8), 32, 12),
+    (24, 256, 256, (128, 128), 24, 120),
+    (16, 96, 128, (24, 64), 16, 1),
+]
+
+
+def _zero_past_lanes(x, bk, lanes):
+    x = x.copy()
+    x.reshape(x.shape[0], -1, bk)[:, :, lanes:] = 0
+    return x
+
+
+@pytest.mark.parametrize("M,K,N,block,bm,lanes", X_LANES_CASES)
+@pytest.mark.parametrize("dtype", ["f32", "bf16", "int8"])
+def test_x_lanes_matches_jax(M, K, N, block, bm, lanes, dtype):
+    """The plain version told that x is zero past ``x_lanes`` lanes of every
+    K-tile equals JAX's kernel, which reads every lane, on such an x."""
+    x, w, tm, plan, rows = _problem(M, K, N, block, "int8" if dtype == "int8" else "f32", 10)
+    x = _zero_past_lanes(x, block[0], lanes)
+    kw = dict(block=block, bm=bm, relu=True)
+    jx, jw, tx, tw = _j(x), _j(w), _t(x), _t(w)
+    if dtype == "bf16":
+        jx, jw = jx.astype(jnp.bfloat16), jw.astype(jnp.bfloat16)
+        tx, tw = tx.to(torch.bfloat16), tw.to(torch.bfloat16)
+    rs = dict(scale=rows["scale"], bias=rows["bias"]) if dtype == "int8" else \
+        dict(bias=rows["bias"])
+    jy = JK.block_sparse_matmul(jx, jw, _j(plan.idx), _j(plan.cnt), _j(rs["bias"]),
+                                _j(rs.get("scale")), interpret=True, **kw)
+    ty = TK.block_sparse_matmul(tx, tw, _t(plan.idx), _t(plan.cnt), _t(rs["bias"]),
+                                _t(rs.get("scale")), x_lanes=lanes, **kw)
+    full = TK.block_sparse_matmul(tx, tw, _t(plan.idx), _t(plan.cnt), _t(rs["bias"]),
+                                  _t(rs.get("scale")), **kw)
+    jy = np.asarray(jy.astype(jnp.float32) if dtype == "bf16" else jy)
+    ty, full = ty.float().numpy(), full.float().numpy()
+    if dtype == "int8":          # exact sums; JAX/CPU fuses the dequant and bias
+        np.testing.assert_array_equal(ty, full)
+        np.testing.assert_allclose(ty, jy, rtol=2.5e-7, atol=1e-7)
+    else:
+        np.testing.assert_allclose(ty, jy, atol=2e-2 if dtype == "bf16" else 1e-5)
+        np.testing.assert_allclose(ty, full, atol=1e-5)
+    # the fully pruned column flushed relu(bias)
+    np.testing.assert_allclose(ty[:, -block[1]:], np.broadcast_to(
+        np.maximum(rows["bias"][-block[1]:], 0), (M, block[1])), atol=2e-2)
+
+
+@pytest.mark.parametrize("lanes", [0, -1, 17])
+def test_x_lanes_refused_outside_1_to_bk(lanes):
+    x, w, tm, plan, rows = _problem(16, 32, 128, (16, 128), "f32", 11)
+    args = (_t(x), _t(w), _t(plan.idx), _t(plan.cnt))
+    for fn in (TK.block_sparse_matmul, TK.block_sparse_matmul_plain):
+        with pytest.raises(ValueError, match=r"x_lanes must be in 1\.\.16"):
+            fn(*args, block=(16, 128), bm=16, x_lanes=lanes)
+    fn(*args, block=(16, 128), bm=16, x_lanes=16)        # bk itself is taken
+
+
 def test_wrapper_takes_plain_version_only_on_cpu(monkeypatch):
     """A CPU tensor runs the plain version and launches nothing; the CUDA
     branch needs the built library (it would raise here, not fall back)."""

@@ -2,7 +2,11 @@
 shapes the smoke run does not reach: every rows-per-thread instance
 (bm 8 ... 128), bf16 operands, column-segmented wide rows, windows that need
 more than 48 KB of shared memory, fully pruned tables, the wrapper's
-refusals and the bind's (``bm`` above 128 on CUDA); for the implicit conv
+refusals and the bind's (``bm`` above 128 on CUDA); for the block-sparse
+matmul's f32 and bf16 instance (tensor-core products over the lanes that
+can be nonzero) every tile shape of the forward and of the dX, ``x_lanes``
+of the whole tile, 12, 120 and 1 lane, element copies of an unaligned x,
+the pruned column's flush and two launches bit-identical; for the implicit conv
 kernel's f32 (3xTF32) and bf16 instances (tensor-core products) the row
 shape, a column whose last nonzero lane lies inside an n8 tile, live tiles
 whose weights are all zero, K-tiles over two weight units, narrow window
@@ -111,6 +115,66 @@ def test_block_sparse_matmul_all_columns_pruned(dev):
     assert torch.equal(got, torch.clamp(rows["bias"], min=0).expand(64, 256))
 
 
+# K1's f32/bf16 instance (tensor cores): the forward tiles of both layouts,
+# the dX tiles of the transposed plans ((128, 16), (128, 8), (128, 128)) and
+# a 24-row tile
+K1_MMA_BLOCKS = [(128, 128), (16, 128), (8, 128), (24, 64), (128, 16), (128, 8)]
+
+
+def _zero_past_lanes(x, bk, lanes):
+    x = x.clone()
+    x.view(x.shape[0], -1, bk)[:, :, lanes:] = 0
+    return x
+
+
+@pytest.mark.parametrize("bm", [8, 16, 24, 32, 64, 96, 128])
+@pytest.mark.parametrize("block", K1_MMA_BLOCKS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_block_sparse_matmul_tensor_core_x_lanes(dev, bm, block, dtype):
+    """K1's tensor-core instance against its plain version for each
+    ``x_lanes`` of {bk, 12, 120, 1} that fits the tile, on an x zero past it
+    (bias and ReLU fused): two launches bit-identical, and the column with
+    no live tile flushes relu(bias)."""
+    bk, bn = block
+    x, w, idx, cnt, rows = _matmul_case(3 * bm, 4 * bk, 3 * bn, block, dtype,
+                                        bm + bk + bn, dev)
+    assert int(cnt[-1]) == 0
+    for lanes in sorted({bk, 12, 120, 1} & set(range(1, bk + 1)), reverse=True):
+        xz = _zero_past_lanes(x, bk, lanes)
+        kw = dict(block=block, bm=bm, relu=True, bias=rows["bias"], x_lanes=lanes)
+        before = BSM.launch_count()
+        got = BSM.block_sparse_matmul(xz, w, idx, cnt, **kw)
+        again = BSM.block_sparse_matmul(xz, w, idx, cnt, **kw)
+        torch.cuda.synchronize()
+        assert BSM.launch_count() == before + 2
+        assert torch.equal(got, again), lanes
+        want = BSM.block_sparse_matmul_plain(xz, w, idx, cnt, **kw)
+        _check(got, want, 1e-4 if dtype == torch.float32 else 3.2e-2)
+        zero_col = torch.clamp(rows["bias"][-bn:], min=0).to(dtype).expand(3 * bm, bn)
+        assert torch.equal(got[:, -bn:], zero_col), lanes
+
+
+@pytest.mark.parametrize("block,lanes", [((128, 16), 12), ((16, 128), 16)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_block_sparse_matmul_tensor_core_element_copies(dev, block, lanes, dtype):
+    """An x that starts one element past a 16-byte boundary takes the
+    tensor-core instance's element copies: the same bits as the 16-byte
+    copies of an aligned x, which stage the same values."""
+    bk, bn = block
+    x, w, idx, cnt, rows = _matmul_case(64, 4 * bk, 3 * bn, block, dtype, 5, dev)
+    x = _zero_past_lanes(x, bk, lanes)
+    flat = torch.empty(x.numel() + 1, dtype=dtype, device=dev)
+    xu = flat[1:].view(x.shape)
+    xu.copy_(x)
+    assert xu.is_contiguous() and xu.data_ptr() % 16 != 0
+    kw = dict(block=block, bm=64, relu=True, bias=rows["bias"], x_lanes=lanes)
+    got = BSM.block_sparse_matmul(xu, w, idx, cnt, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got, BSM.block_sparse_matmul(x, w, idx, cnt, **kw))
+    _check(got, BSM.block_sparse_matmul_plain(x, w, idx, cnt, **kw),
+           1e-4 if dtype == torch.float32 else 3.2e-2)
+
+
 def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
     x, w, idx, cnt, rows = _matmul_case(256, 64, 512, (16, 256), torch.float32, 2, dev)
     with pytest.raises(ValueError, match="bn <= 128"):
@@ -122,6 +186,8 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
         BSM.block_sparse_matmul(x.double(), w.double(), idx, cnt, block=(16, 128), bm=64)
     with pytest.raises(TypeError, match="must be int32"):
         BSM.block_sparse_matmul(x, w, idx.long(), cnt, block=(16, 128), bm=64)
+    with pytest.raises(ValueError, match=r"x_lanes must be in 1\.\.16"):
+        BSM.block_sparse_matmul(x, w, idx, cnt, block=(16, 128), bm=64, x_lanes=17)
     mb = IC.choose_m_block(1, 128)
     big = torch.zeros(1, 130, 130, 8, device=dev)
     with pytest.raises(ValueError, match="does not fit a thread block"):

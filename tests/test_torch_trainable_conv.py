@@ -85,6 +85,41 @@ def test_trainable_conv_grads_match_jax(stride, padding, cin, cout, n_cu,
         assert float(tw.grad.abs().max()) == 0.0 and float(tx.grad.abs().max()) == 0.0
 
 
+@pytest.mark.parametrize("packed,lanes", [(False, 12), (True, 120)])
+@pytest.mark.parametrize("implicit", [False, True])
+def test_dx_reads_only_the_layout_output_lanes(monkeypatch, packed, lanes, implicit):
+    """The trainable conv's dX (the block-sparse matmul on the transposed
+    plan) is told the layout's ``output_lanes`` (12 of 128 unpacked, 120
+    packed at n_cu = 12) as ``x_lanes``, and its gradients still equal
+    JAX's, whose kernel reads every lane."""
+    from repro_torch.kernels import ops as TO
+    seen = []
+    real = TO.block_sparse_matmul
+
+    def spy(*a, **k):
+        seen.append(k.get("x_lanes"))
+        return real(*a, **k)
+
+    monkeypatch.setattr(TO, "block_sparse_matmul", spy)
+    rng = np.random.RandomState(5)
+    cin, cout, n_cu = 16, 32, 12
+    jspec = fpga_conv_groups((3, 3, cin, cout), n_cu)
+    gm = _group_mask(rng, jspec.num_groups, 0.5)
+    tlayout = t_layout(t_groups((3, 3, cin, cout), n_cu), packed=packed)
+    assert tlayout.output_lanes == lanes
+    w = rng.randn(3, 3, cin, cout).astype(np.float32)
+    x = rng.randn(2, 6, 6, cin).astype(np.float32)
+    jc = j_conv(j_layout(jspec, packed=packed), gm, implicit=implicit, trainable=True)
+    tc = t_conv(tlayout, gm, implicit=implicit, trainable=True)
+    jdx, jdw = jax.grad(lambda a, b: jnp.sum(jnp.sin(jc(a, b, 1, "SAME"))), (0, 1))(
+        jnp.asarray(x), jnp.asarray(w))
+    tx, tw = _t(x).requires_grad_(), _t(w).requires_grad_()
+    torch.sum(torch.sin(tc(tx, tw, 1, "SAME"))).backward()
+    assert seen and seen[-1] == lanes      # the dX call, after any forward one
+    np.testing.assert_allclose(tx.grad.numpy(), np.asarray(jdx), rtol=GRAD_TOL, atol=GRAD_TOL)
+    np.testing.assert_allclose(tw.grad.numpy(), np.asarray(jdw), rtol=GRAD_TOL, atol=GRAD_TOL)
+
+
 def test_trainable_conv_reuses_geometry_and_never_goes_stale():
     """The per-(kx,ky,stride,padding) autograd closures are cached; a call
     with new weights is right (nothing is prepacked). The reference is the
