@@ -6,16 +6,20 @@ Run ``python3 chip_smoke.py`` from the repository root. It
 1. builds the CUDA kernels from ``src/repro_torch/csrc`` with ``nvcc`` and
    checks with ``cuobjdump -sass`` that every instance of the implicit conv
    kernel (K2) holds tensor-core instructions: ``IMMA`` in the int8 ones,
-   ``HMMA`` in the f32 (3xTF32) and bf16 ones; and ``HMMA`` in every
-   instance of the weight-gradient kernel (K3) and of the block-sparse
-   matmul's tensor-core kernel (K1), f32 and bf16,
+   ``HMMA`` in the f32 (3xTF32) and bf16 ones; ``HMMA`` in every instance
+   of the weight-gradient kernel (K3) and of the block-sparse matmul's
+   float kernel (K1, f32 and bf16), and ``IMMA`` in every instance of K1's
+   int8 kernel,
 2. holds each kernel against its plain PyTorch version on the GPU at the
    layer shapes of the full-width ``ResNetConfig()`` (bit equality for int8
    outputs and skip counters, <= 1e-4 for f32, K2's f32 instance also
    bit-identical across two launches), timing kernel, plain version
-   and ``F.conv2d`` as a yardstick (``*_ms``: device time per launch with
-   the launches queued back to back; ``*_call_ms``: one call on an idle
-   device, host-side wrapper included); the representative geometry also
+   and ``F.conv2d`` as a yardstick, K1's int8 rows also beside
+   ``torch._int_mm`` on the same packed operands (``*_ms``: device time per
+   launch with the launches queued back to back; ``*_call_ms``: one call on
+   an idle device, host-side wrapper included), and each kernel summed over
+   the 21 convs of one forward (``kernels_per_forward``); the representative
+   geometry also
    at batch 1, serving's smallest bucket; K2's f32 instance again at the
    training batch (128) at every layer geometry in both layouts, the shapes
    the training forward launches (``kernels_f32_train``); K3 there too
@@ -25,9 +29,11 @@ Run ``python3 chip_smoke.py`` from the repository root. It
    ``matmul(g, Wpᵀ)``),
 3. serves the full-width, HAPM-pruned (0.5), random-weight network through
    ``CnnServer`` in both tile layouts (implicit kernel on all 21 layers), the
-   materializing contract, the default command-line contract and every rung
-   of the degradation ladder, checking logits against a CPU server that runs
-   the plain versions, and proving by launch counts that the kernels ran,
+   materializing contract in both layouts (K1's int8 kernel on all 21), the
+   default command-line contract and every rung of the degradation ladder,
+   checking logits against a CPU server that runs the plain versions, and
+   proving by launch counts that the kernels ran; then times the implicit
+   and the materializing servers at every bucket (``timing``),
 4. trains the same network (QAT, batch 128, synthetic CIFAR from a seed)
    for a few SGD steps through ``ExecSpec(trainable=True)`` binds in both
    tile layouts — forward through the implicit conv kernel, dX through the
@@ -58,6 +64,11 @@ Run ``python3 chip_smoke.py`` from the repository root. It
 Any failing phase raises: the exit code is non-zero and no ``ok`` line is
 printed. Without a CUDA device the script exits with code 2 before printing
 any result. ``--log FILE`` also appends every phase line to a file.
+``--baseline`` times an older tree against this one (a copy of that tree
+with this script in its root): every phase runs, but the build phase only
+reports the SASS counts (such a tree lacks instances the check names, e.g.
+K1's int8 tensor-core kernel before it existed) and no ``ok`` line is
+printed.
 
 The ``kernels`` line gives each kernel at the layer the network runs most
 often: ``ms`` is the device time per launch with launches queued back to
@@ -80,6 +91,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import hashlib
 import json
 import os
 import statistics
@@ -192,54 +204,84 @@ def gpu_name_and_limit() -> str:
 # K2's instances, by the name of their kernel templates: int8 codes, and the
 # f32 / bf16 operands (told apart by the bf16 type in the mangled name);
 # K3's and K1's float ones (f32 / bf16 operands; 16-byte or element copies;
-# narrow or wide lanes)
+# narrow or wide lanes); K1's int8 ones (16-, 8-, 4-byte or element copies)
 K2_INT8_KERNEL = "implicit_conv_kernel_imma"
 K2_FLOAT_KERNEL = "implicit_conv_kernel"
 K3_KERNEL = "grad_weight_stack_kernel"
 K1_FLOAT_KERNEL = "block_sparse_matmul_mma_kernel"
+K1_INT8_KERNEL = "block_sparse_matmul_imma_kernel"
 
 
-def tensor_core_instances() -> dict:
+def tensor_core_instances(require: bool = True) -> dict:
     """{"int8": {instance: IMMA instructions}, "f32": {instance: HMMA
     instructions}, "bf16": {...}} for K2, {"k3_f32": ..., "k3_bf16": ...}
-    for K3 and {"k1_f32": ..., "k1_bf16": ...} for K1's float instances,
-    from ``cuobjdump -sass`` of the built library. Raises unless each of the
-    four int8 instances of K2 (one per m16 tiles per block) holds integer
-    tensor-core (IMMA) instructions, each of the four f32 and four bf16
-    instances holds float ones (HMMA), and each of K3's and of K1's four f32
-    and four bf16 instances (16-byte or element copies, narrow or wide
-    lanes) holds HMMA: the proof that all of K2's and K3's products, and
-    those of K1's f32 and bf16 operands, run on the tensor cores."""
+    for K3, {"k1_f32": ..., "k1_bf16": ...} for K1's float instances and
+    {"k1_int8": ...} (IMMA) for its int8 ones, from ``cuobjdump -sass`` of the
+    built library, and "k2_int8_sass": {instance: sha1 of its instructions}
+    (addresses and encodings dropped), so that two builds of K2 can be told
+    equal. With ``require`` it raises unless each of the four int8 instances
+    of K2 (one per m16 tiles per block) holds integer tensor-core (IMMA)
+    instructions, each of its four f32 and four bf16 instances holds float
+    ones (HMMA), each of K3's and of K1's four f32 and four bf16 instances
+    (16-byte or element copies, narrow or wide lanes) holds HMMA, and each of
+    K1's four int8 instances holds IMMA: the proof that all of K1's, K2's and
+    K3's products run on the tensor cores."""
     tool = os.path.join(os.path.dirname(_build.find_nvcc()), "cuobjdump")
     sass = subprocess.run([tool, "-sass", str(_build.library_path())], text=True,
                           stdout=subprocess.PIPE, stderr=subprocess.STDOUT, timeout=300)
     if sass.returncode != 0:
         raise RuntimeError(f"cuobjdump failed: {sass.stdout[-2000:]}")
-    counts, fn = {}, None
+    counts, text, fn = {}, {}, None
     for line in sass.stdout.splitlines():
         if "Function :" in line:
             fn = line.split("Function :", 1)[1].strip()
             counts[fn] = {"IMMA": 0, "HMMA": 0}
+            text[fn] = hashlib.sha1()
         elif fn is not None:
             for op in ("IMMA", "HMMA"):
                 if op in line:
                     counts[fn][op] += 1
+            ins = line.split("*/", 1)[-1].split("/*", 1)[0].strip()
+            if ins:
+                text[fn].update(ins.encode())
     k2 = {f: n for f, n in counts.items() if K2_FLOAT_KERNEL in f}
     out = {"int8": {f: n["IMMA"] for f, n in k2.items() if K2_INT8_KERNEL in f}}
+    out["k2_int8_sass"] = {f: text[f].hexdigest() for f in out["int8"]}
     floats = {f: n["HMMA"] for f, n in k2.items() if K2_INT8_KERNEL not in f}
     out["bf16"] = {f: n for f, n in floats.items() if "bfloat16" in f}
     out["f32"] = {f: n for f, n in floats.items() if "bfloat16" not in f}
-    for kind, op in (("int8", "IMMA"), ("f32", "HMMA"), ("bf16", "HMMA")):
-        if len(out[kind]) < 4 or not all(out[kind].values()):
-            raise AssertionError(f"K2's {kind} instances lack {op} instructions: {k2}")
+    out["k1_int8"] = {f: n["IMMA"] for f, n in counts.items() if K1_INT8_KERNEL in f}
+    wanted = [("K2", kind, op, out[kind]) for kind, op in
+              (("int8", "IMMA"), ("f32", "HMMA"), ("bf16", "HMMA"))]
+    wanted.append(("K1", "int8", "IMMA", out["k1_int8"]))
     for tag, name in (("k3", K3_KERNEL), ("k1", K1_FLOAT_KERNEL)):
         found = {f: n["HMMA"] for f, n in counts.items() if name in f}
         out[f"{tag}_bf16"] = {f: n for f, n in found.items() if "bfloat16" in f}
         out[f"{tag}_f32"] = {f: n for f, n in found.items() if "bfloat16" not in f}
-        for kind in (f"{tag}_f32", f"{tag}_bf16"):
-            if len(out[kind]) < 4 or not all(out[kind].values()):
-                raise AssertionError(f"{tag.upper()}'s {kind[3:]} instances lack HMMA "
-                                     f"instructions: {found}")
+        for kind in ("f32", "bf16"):
+            wanted.append((tag.upper(), kind, "HMMA", out[f"{tag}_{kind}"]))
+    for tag, kind, op, found in wanted:
+        if require and (len(found) < 4 or not all(found.values())):
+            raise AssertionError(f"{tag}'s {kind} instances lack {op} instructions: {found}")
+    return out
+
+
+def resource_usage(name: str) -> dict:
+    """{instance: {"REG": registers a thread, "LOCAL": local (spill) bytes}}
+    of the kernels whose mangled name holds ``name``, from ``cuobjdump
+    -res-usage`` of the built library (auxiliary: empty if the tool prints
+    nothing it can read)."""
+    tool = os.path.join(os.path.dirname(_build.find_nvcc()), "cuobjdump")
+    res = subprocess.run([tool, "-res-usage", str(_build.library_path())], text=True,
+                         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, timeout=300)
+    out, fn = {}, None
+    for line in res.stdout.splitlines():
+        if "Function" in line:
+            fn = line.split("Function", 1)[1].strip(" :")
+        elif fn is not None and name in fn and "REG:" in line:
+            fields = dict(f.split(":", 1) for f in line.split() if ":" in f)
+            out[fn] = {k: int(fields[k]) for k in ("REG", "LOCAL") if fields.get(k, "").isdigit()}
+            fn = None
     return out
 
 
@@ -357,6 +399,16 @@ def layer_geometries(cfg: cnn.ResNetConfig):
     """One (name, H, stride, k, cin, cout) per distinct conv geometry of the
     network, in execution order."""
     seen, out = set(), []
+    for g in all_layer_geometries(cfg):
+        if g[1:] not in seen:
+            seen.add(g[1:])
+            out.append(g)
+    return out
+
+
+def all_layer_geometries(cfg: cnn.ResNetConfig):
+    """(name, H, stride, k, cin, cout) of every conv of the network, in
+    execution order."""
     feat, cin = cfg.image_size, cfg.in_channels
     geoms = [("conv0", feat, 1, 3, cin, cfg.widths[0])]
     cin = cfg.widths[0]
@@ -370,11 +422,7 @@ def layer_geometries(cfg: cnn.ResNetConfig):
             if stride != 1 or cin != width:
                 geoms.append((f"s{si}b{bi}/proj", feat, stride, 1, cin, width))
             feat, cin = o, width
-    for g in geoms:
-        if g[1:] not in seen:
-            seen.add(g[1:])
-            out.append(g)
-    return out
+    return geoms
 
 
 def make_case(geom, packed: bool, mode: str, batch: int, n_cu: int, device,
@@ -508,7 +556,7 @@ def compare(name: str, got, want, case) -> float:
 # device-side kernel names of this repo's CUDA kernels, by the kernel they
 # belong to
 OWN_KERNELS = {"implicit_block_sparse_conv": ("implicit_conv_kernel",),
-               "block_sparse_matmul": ("block_sparse_matmul_kernel", K1_FLOAT_KERNEL),
+               "block_sparse_matmul": (K1_INT8_KERNEL, K1_FLOAT_KERNEL),
                "block_sparse_grad_weight": (K3_KERNEL, "grad_weight_reduce_kernel"),
                "int8_matmul": ("int8_matmul_kernel",)}
 
@@ -617,7 +665,48 @@ def kernel_case_row(case, device, reps: int, plain_reps: int, worst,
     row["library_ms"] = library_ms(case, device, reps)
     if case.get("profile"):
         row["library_profiler_ms"] = case.get("library_profiler_ms")
+    if k1:
+        row["k1_ms_div_library"] = row["k1_ms"] / row["library_ms"]
+        if case["mode"] != "f32":
+            row["k1_int_mm_ms"] = int_mm_ms(case, device, reps)
     return row
+
+
+def int_mm_ms(case, device, reps):
+    """``torch._int_mm(patches, Wp)`` through cuBLAS on K1's packed int8
+    operands: the dense product (dead tiles included, no epilogue), a
+    yardstick only; None where cuBLAS refuses the shape."""
+    x, w = case["k1"]["x"], case["common"]["w"]
+    try:
+        return device_ms(lambda: torch._int_mm(x, w), device, reps)
+    except RuntimeError as e:
+        print(f"chip_smoke: _int_mm refused {tuple(x.shape)} x {tuple(w.shape)} "
+              f"({str(e).splitlines()[0]})", file=sys.stderr)
+        return None
+
+
+def per_forward(cfg, rows, batch):
+    """Each kernel's time summed over the 21 convs of one forward at
+    ``batch`` (every geometry's row times the convs that share it), per
+    layout and mode, beside cuDNN's and (int8) ``_int_mm``'s."""
+    count = {}
+    for g in all_layer_geometries(cfg):
+        count[g[1:]] = count.get(g[1:], 0) + 1
+    out = {}
+    for r in rows:
+        if r["batch"] != batch:
+            continue
+        n = count[(r["H"], r["stride"], r["k"], r["cin"], r["cout"])]
+        d = out.setdefault(f"{'packed' if r['packed'] else 'unpacked'}_{r['mode']}",
+                           {"convs": 0, "k1_ms": 0.0, "k2_ms": 0.0, "library_ms": 0.0,
+                            "k1_int_mm_ms": 0.0})
+        d["convs"] += n
+        for k in ("k1_ms", "k2_ms", "library_ms", "k1_int_mm_ms"):
+            if d[k] is not None and r.get(k) is not None:
+                d[k] += n * r[k]
+            else:
+                d[k] = None
+    return out
 
 
 def phase_kernels(cfg, device, batch: int, reps: int, plain_reps: int):
@@ -654,6 +743,8 @@ def phase_kernels(cfg, device, batch: int, reps: int, plain_reps: int):
         cases_out.append(row)
     emit("kernels", batch=batch, f32_tol=F32_TOL, int8_tol=0.0,
          reps=reps, plain_reps=plain_reps, cases=cases_out)
+    emit("kernels_per_forward", batch=batch, card=gpu_name_and_limit(),
+         sums=per_forward(cfg, cases_out, batch))
     return worst, rep, by_mode
 
 
@@ -1507,9 +1598,9 @@ def kernels_line(paths, worst, rep, rep_gw, rep_i8, by_mode, k1_by_mode):
     instances apart (``by_mode``: the representative geometry unpacked in
     each mode at the kernels batch, and streamed at batch 1 in both
     layouts), each beside its bound and the cuDNN yardstick; K1 gives its
-    int8 (``streamed``) and f32 forward rows at the kernels batch and its f32
-    dX at the training batch in both layouts (``k1_by_mode``), the dX beside
-    ``matmul(g, Wpᵀ)``."""
+    int8 (``streamed``, also beside ``_int_mm``) and f32 forward rows at the
+    kernels batch and its f32 dX at the training batch in both layouts
+    (``k1_by_mode``), the dX beside ``matmul(g, Wpᵀ)``."""
     tag = {"block_sparse_matmul": "k1", "implicit_block_sparse_conv": "k2"}
     shape_keys = ("name", "packed", "batch", "H", "stride", "k", "cin", "cout")
     timing = ("ms", "call_ms", "plain_ms", "bound_ms", "bound_by", "bound_padded_ms",
@@ -1535,6 +1626,7 @@ def kernels_line(paths, worst, rep, rep_gw, rep_i8, by_mode, k1_by_mode):
                     m: {"packed": r["packed"], "batch": r["batch"],
                         **{k: r[k if "x_lanes" in r else f"k1_{k}"] for k in timing[:-1]},
                         "library_ms": r["library_ms"],
+                        **({"int_mm_ms": r["k1_int_mm_ms"]} if "k1_int_mm_ms" in r else {}),
                         **({"x_lanes": r["x_lanes"], "block": r["block"]}
                            if "x_lanes" in r else {})}
                     for m, r in k1_by_mode.items()}
@@ -1554,6 +1646,11 @@ def main(argv=None) -> int:
     ap.add_argument("--log", default=None,
                     help="also append every phase line to this file (the "
                          "kernels line is long)")
+    ap.add_argument("--baseline", action="store_true",
+                    help="time an older source tree against this one: run from "
+                         "a copy of that tree with this script in it; the build "
+                         "phase reports the SASS counts without requiring the "
+                         "instances such a tree lacks, and no ok line is printed")
     args = ap.parse_args(argv)
     if args.log:
         global LOG_PATH
@@ -1577,18 +1674,22 @@ def main(argv=None) -> int:
          card=card, device=torch.cuda.get_device_name(0))
 
     _build.load()
-    mma = tensor_core_instances()
+    mma = tensor_core_instances(require=not args.baseline)
     emit("build", seconds=_build.build_seconds, library=os.path.relpath(
         str(_build.library_path()), ROOT), flags=list(_build.NVCC_FLAGS),
+         baseline=args.baseline,
          k2_int8_imma_instructions=mma["int8"], k2_f32_hmma_instructions=mma["f32"],
          k2_bf16_hmma_instructions=mma["bf16"], k3_f32_hmma_instructions=mma["k3_f32"],
          k3_bf16_hmma_instructions=mma["k3_bf16"], k1_f32_hmma_instructions=mma["k1_f32"],
-         k1_bf16_hmma_instructions=mma["k1_bf16"])
+         k1_bf16_hmma_instructions=mma["k1_bf16"],
+         k1_int8_imma_instructions=mma["k1_int8"], k2_int8_sass_sha1=mma["k2_int8_sass"],
+         k1_int8_resources=resource_usage(K1_INT8_KERNEL))
     worst, rep, k2_by_mode = phase_kernels(cfg, device, kernel_batch, reps, plain_reps)
     phase_kernels_f32_train(cfg, device, TRAIN_BATCH, reps, plain_reps, worst, k2_by_mode)
     worst["block_sparse_grad_weight"], rep_gw = phase_kernels_grad_weight(
         cfg, device, TRAIN_BATCH, reps, plain_reps)
-    k1_by_mode = {m: k2_by_mode[m] for m in ("streamed", "f32")}
+    k1_by_mode = {m: k2_by_mode[m] for m in ("streamed", "int8", "f32", "streamed_batch1",
+                                             "streamed_batch1_packed")}
     phase_kernels_dx_train(cfg, device, TRAIN_BATCH, reps, plain_reps, worst, k1_by_mode)
     worst["int8_matmul"], rep_i8 = phase_kernels_int8_matmul(device, reps, plain_reps)
 
@@ -1613,19 +1714,22 @@ def main(argv=None) -> int:
                            cnn.ExecSpec(packed=True, **streamed), buckets,
                            models, frames, devices, sizes=sizes,
                            kernel_name="implicit_block_sparse_conv")
-    serve_phase("serve_materializing", cfg,
-                cnn.ExecSpec(packed=True, quantized=True, folded=True,
-                             streamed=True, implicit=False,
-                             dense_fallback=2.0, n_cu=N_CU),
-                buckets, models, frames, devices, sizes=[sizes[3]],
-                kernel_name="block_sparse_matmul")
+    # the materializing contract (K1 int8 on the patch rows), both layouts
+    materializing = {}
+    for label, packed in (("materializing", True), ("materializing_unpacked", False)):
+        materializing[label], _ = serve_phase(
+            f"serve_{label}", cfg,
+            cnn.ExecSpec(packed=packed, quantized=True, folded=True, streamed=True,
+                         implicit=False, dense_fallback=2.0, n_cu=N_CU),
+            buckets, models, frames, devices, sizes=[sizes[3]],
+            kernel_name="block_sparse_matmul")
     paths = {"serve": kernels.launch_counts()}
 
     phase_default_cli(device)
     phase_ladder(cfg, cnn.ExecSpec(packed=True, **streamed), buckets, models,
                  frames, devices)
-    phase_timing({"unpacked": srv_u, "packed": srv_p}, buckets, frames, device,
-                 reps, card)
+    phase_timing({"unpacked": srv_u, "packed": srv_p, **materializing}, buckets, frames,
+                 device, reps, card)
 
     # ---- main path 2, training: the QAT net through trainable binds
     qat = dataclasses.replace(cfg, quantized=True)
@@ -1660,6 +1764,8 @@ def main(argv=None) -> int:
                 raise AssertionError(f"the {path} path never launched {kname}")
 
     emit("done", seconds=time.time() - t_start)
+    if args.baseline:
+        return 0
     print(card, flush=True)
     print(json.dumps({"kernels": kernels_line(paths, worst, rep, rep_gw, rep_i8,
                                               k2_by_mode, k1_by_mode)}),

@@ -16,12 +16,52 @@
 // epilogue on a zero accumulator (bias, then ReLU), as the dense
 // conv(x, 0) + b would. The epilogue is the one in epilogue.cuh.
 //
-// int8 codes (`block_sparse_matmul_kernel`; serving under implicit=False).
-// CUDA cores: each live tile is staged through shared memory in 16-deep K
-// slices, converted to int32 and multiplied with exact integer
-// multiply-adds, 16 x 16 threads each owning up to 8 x 8 outputs. Bound by
-// the bytes it moves (the patch rows in, the flushed tile out), not by
-// arithmetic; its redesign is separate work.
+// int8 codes (`block_sparse_matmul_imma_kernel`; serving under
+// implicit=False: a conv's packed patch rows times its packed weight codes,
+// tiles (16, 128) and (8, 128) unpacked, (128, 128) packed). What bounds it:
+// bytes (the live patch lanes in, the output tile out: bm rows by bn lanes
+// of f32 or int8 codes), once the products are on the tensor cores; a live
+// tile's products are at most 2*bm*bk*bn int8 operations, far under 1979
+// TOP/s. The CUDA-core kernel it replaces widened every code to int32 in
+// shared memory and multiplied all bn output lanes with exact IMADs: on the
+// unpacked layouts, whose 12-filter groups fill 12 of a tile's 128 lanes,
+// about ten times the products needed, on the unit with the lowest integer
+// rate. What the design does:
+//   * products on the tensor cores (csrc/mma_s8.cuh): mma.sync m16n8k32 per
+//     32-lane K step, m16n8k16 for a 16-lane tail; int32 sums are exact in
+//     any order, so the result equals the plain version bit for bit. 8
+//     warps, warp w the m16 rows 16w.. of the M-block; rows past bm are
+//     zero-filled and not stored, a warp wholly past bm only copies. At
+//     most 128 registers, so that two blocks share an SM.
+//   * the column's live K-tiles end to end: the block walks the K lanes of
+//     its live tiles as one sequence (tile idx[j, s] at lanes s*bk ..) in
+//     units of 128 lanes, so tiles of bk = 8 or 24 lanes sit back to back in
+//     a K step and nothing is read past a tile; only the last unit's tail is
+//     zero-filled up to the step depth. A lane's tile is found by a multiply
+//     and a shift (FastDiv), not a division.
+//   * only the n8 tiles that hold a nonzero code: a unit's weight rows move
+//     as 4x4-byte blocks (cp.async, 4 bytes a row) into a ring slot at a row
+//     pitch of 136 words; each thread transposes the blocks it copied in
+//     place with byte permutes into B-fragment words (B loads then fall on
+//     32 distinct banks) and notes which n8 tiles and which 32-row steps of
+//     the unit hold a nonzero code. The products run up to the last such n8
+//     tile (2 of 16 on the unpacked layouts) and skip the steps whose weight
+//     rows are all zero. An n8 tile with no nonzero code in any unit holds
+//     the epilogue of a zero accumulator in every row: the block computes
+//     that row once through flush_epilogue and writes it in 16-byte stores.
+//   * staging: x rows (K-contiguous: the A operand's layout) and the weight
+//     blocks of a unit move through a ring of three cp.async slots, two
+//     units in flight while one is multiplied, one barrier per unit. An x
+//     row pitch of 144 bytes puts the A-fragment loads on distinct banks
+//     (128 would put a warp's rows on four). Operands whose rows or pointers
+//     are not 16-byte aligned take the same kernel with 8- or 4-byte
+//     copies, or with element copies.
+//   * one column a block, and the N-tiles of one M-block next to each other
+//     in the grid, as for the f32 instance. A column with cnt == 0 stages
+//     nothing and writes the zero-accumulator row. Fixed order, no atomics
+//     on data: two launches on the same inputs give the same bits.
+//   * the flush runs `flush_frags` (epilogue.cuh) from the C fragments, two
+//     adjacent columns a store.
 //
 // f32 and bf16 operands (`block_sparse_matmul_mma_kernel`; on the main path
 // the dX of training, dP = g @ Wp^T on the transposed plan at batch 128).
@@ -79,97 +119,321 @@
 #include "cp_async.cuh"
 #include "epilogue.cuh"
 #include "mma_f32.cuh"
+#include "mma_s8.cuh"
 
 namespace hapm {
 
 // ---------------------------------------------------------------------------
-// int8 codes: CUDA cores
+// int8 codes: tensor cores (mma.sync s8)
 
-constexpr int kSliceK = 16;
+constexpr int kImThreads = 256;
+constexpr int kImWarps = kImThreads / 32;
+constexpr int kImRows = 16 * kImWarps;         // rows of a staged x unit: bm <= 128
+constexpr int kImUnit = 128;                   // K lanes of a unit (x lanes, weight rows)
+constexpr int kImStages = 3;
+constexpr int kImPitchX = kImUnit + 16;        // bytes per staged x row: 36 words
+constexpr int kImPitchW = kMaxBn + 8;          // words per weight word row: 8 mod 32
+constexpr int kImSlotX = kImRows * kImPitchX;  // bytes
+constexpr int kImSlotW = kImUnit / 4 * kImPitchW * 4;
+constexpr int kImWBlocks = kImUnit / 4 * (kMaxBn / 4) / kImThreads;  // 4x4 blocks a thread moves
+constexpr int kImTiles = kMaxBn / 8;           // n8 tiles of sums a warp keeps
+constexpr size_t kImSmemBytes = kImStages * static_cast<size_t>(kImSlotX + kImSlotW);
 
-template <typename T, typename Acc, int RM>
-__global__ void __launch_bounds__(kThreads)
-block_sparse_matmul_kernel(const T* __restrict__ x, const T* __restrict__ w,
-                           const int* __restrict__ idx, const int* __restrict__ cnt, Epilogue ep,
-                           void* __restrict__ out, int out_int8, int K, int N, int bm, int bk,
-                           int bn, int max_nnz) {
-  __shared__ Acc xs[RM * kTy][kSliceK + 1];
-  __shared__ Acc ws[kSliceK][kMaxBn];
+// n / d for 0 <= n < 2^31 as a multiply-high and a shift (mul = ceil(2^p / d),
+// p = 31 + ceil(log2 d)); d = 1 passes n through.
+struct FastDiv {
+  unsigned d, mul, shr;
+};
 
-  const int i = blockIdx.x;
-  const int j = blockIdx.y;
+static FastDiv make_fast_div(unsigned d) {
+  FastDiv f{d, 0u, 0u};
+  if (d > 1) {
+    int l = 0;
+    while ((1ull << l) < d) ++l;
+    const int p = 31 + l;
+    f.mul = static_cast<unsigned>(((1ull << p) + d - 1) / d);
+    f.shr = static_cast<unsigned>(p - 32);
+  }
+  return f;
+}
+
+__device__ __forceinline__ int fast_div(int n, const FastDiv& f) {
+  return f.d == 1 ? n : static_cast<int>(__umulhi(static_cast<unsigned>(n), f.mul) >> f.shr);
+}
+
+struct ImGeom {
+  int K, N;          // row lengths of x (and the K extent of w) and of w / out
+  int bm, bk, bn, max_nnz;
+  int n_cols;        // N / bn
+  FastDiv by_bk;
+};
+
+// Block b: N-tile j = b % n_cols of M-block i = b / n_cols. XV: bytes per x
+// copy (16, 8 or 4 through cp.async; 1: element copies); kWVec: the weight
+// rows are copied 4 bytes at a time through cp.async (else element copies).
+template <int XV, bool kWVec>
+__global__ void __launch_bounds__(kImThreads, 2)
+block_sparse_matmul_imma_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
+                                const int* __restrict__ idx, const int* __restrict__ cnt,
+                                Epilogue ep, void* __restrict__ out, int out_int8, ImGeom g) {
+  extern __shared__ __align__(16) unsigned char im_smem[];
+  __shared__ unsigned s_mask[3];                  // per unit: nonzero n8 tiles (bits 0-15)
+                                                  // and 32-row steps (bits 16-19)
+  __shared__ __align__(16) float s_z[kMaxBn];     // epilogue of a zero accumulator
+  __shared__ __align__(16) int8_t s_z8[kMaxBn];   // the same as int8 codes
+  auto xs = [&](int u) { return reinterpret_cast<int8_t*>(im_smem) + (u % kImStages) * kImSlotX; };
+  auto ws = [&](int u) {
+    return reinterpret_cast<int*>(im_smem + kImStages * kImSlotX + (u % kImStages) * kImSlotW);
+  };
+
   const int tid = threadIdx.x;
-  const int tx = tid % kTx;
-  const int ty = tid / kTx;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int gq = lane >> 2;  // mma groupID
+  const int tq = lane & 3;   // mma thread in group
+  const int j = blockIdx.x % g.n_cols;
+  const int i = blockIdx.x / g.n_cols;
+  const int* tiles = idx + static_cast<size_t>(j) * g.max_nnz;
+  const int n_lanes = cnt[j] * g.bk;  // the live tiles' K lanes, end to end
+  const int n_units = (n_lanes + kImUnit - 1) / kImUnit;
+  const size_t col0 = static_cast<size_t>(j) * g.bn;
+  const Epilogue epj{ep.scale != nullptr ? ep.scale + col0 : nullptr,
+                     ep.bias != nullptr ? ep.bias + col0 : nullptr,
+                     ep.out_scale != nullptr ? ep.out_scale + col0 : nullptr, ep.relu};
+  // the K index (row of w, column of x) of lane l < n_lanes of the sequence
+  auto k_of = [&](int l) {
+    const int s = fast_div(l, g.by_bk);
+    return __ldg(tiles + s) * g.bk + (l - s * g.bk);
+  };
 
-  Acc acc[RM][kColsPerThread];
-#pragma unroll
-  for (int a = 0; a < RM; ++a)
-#pragma unroll
-    for (int b = 0; b < kColsPerThread; ++b) acc[a][b] = 0;
+  // x: this thread copies lane xl of every unit, rows xr0 + XRP*p
+  constexpr int XC = kImUnit / XV;       // copies per row
+  constexpr int XRP = kImThreads / XC;   // rows per pass
+  constexpr int XP = kImRows / XRP;
+  const int xl = (tid % XC) * XV;
+  const int xr0 = tid / XC;
+  const int8_t* xrow = x + (static_cast<size_t>(i) * g.bm + xr0) * g.K;
+  const size_t xstep = static_cast<size_t>(XRP) * g.K;
 
-  const int live = cnt[j];
-  for (int s = 0; s < live; ++s) {
-    const int t = idx[j * max_nnz + s];
-    for (int k0 = 0; k0 < bk; k0 += kSliceK) {
-      const int kc = min(kSliceK, bk - k0);
-      __syncthreads();  // the previous slice's products are done
-      for (int e = tid; e < RM * kTy * kSliceK; e += kThreads) {
-        const int r = e / kSliceK;
-        const int k = e % kSliceK;
-        Acc v = 0;
-        if (r < bm && k < kc)
-          v = to_acc<Acc>(x[(static_cast<size_t>(i) * bm + r) * K + t * bk + k0 + k]);
-        xs[r][k] = v;
+  // Unit u into its ring slot: x lanes and weight rows past the sequence,
+  // x rows past bm and weight columns past bn are zeros. The weights land as
+  // 4x4-byte blocks: block (kw, n/4) at words kw*kImPitchW + n .. + 3, one
+  // word per row 4kw + r, columns n .. n+3.
+  auto stage = [&](int u) {
+    int8_t* xd = xs(u);
+    const int lx = u * kImUnit + xl;
+    const bool lane_ok = lx < n_lanes;
+    const int kx = lane_ok ? k_of(lx) : 0;
+#pragma unroll
+    for (int p = 0; p < XP; ++p) {
+      const int r = xr0 + XRP * p;
+      const bool ok = lane_ok && r < g.bm;
+      const int8_t* src = ok ? xrow + p * xstep + kx : x;
+      int8_t* dst = xd + r * kImPitchX + xl;
+      if constexpr (XV == 1) {
+        *dst = ok ? *src : 0;
+      } else if constexpr (XV == 16) {
+        cp_async16_zfill(dst, src, ok ? 16 : 0);
+      } else {
+        cp_async_zfill<XV>(dst, src, ok ? XV : 0);
       }
-      for (int e = tid; e < kSliceK * kMaxBn; e += kThreads) {
-        const int k = e / kMaxBn;
-        const int c = e % kMaxBn;
-        Acc v = 0;
-        if (k < kc && c < bn)
-          v = to_acc<Acc>(w[(static_cast<size_t>(t) * bk + k0 + k) * N + j * bn + c]);
-        ws[k][c] = v;
+    }
+    int* wd = ws(u);
+    const int n = lane * 4;
+#pragma unroll
+    for (int q = 0; q < kImWBlocks; ++q) {
+      const int kw = warp + kImWarps * q;
+      int* dst = wd + kw * kImPitchW + n;
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const int l = u * kImUnit + 4 * kw + r;
+        const bool row_ok = l < n_lanes;
+        const int8_t* src = w + static_cast<size_t>(row_ok ? k_of(l) : 0) * g.N + col0 + n;
+        if constexpr (kWVec) {
+          const bool ok = row_ok && n < g.bn;
+          cp_async_zfill<4>(dst + r, ok ? src : w, ok ? 4 : 0);
+        } else {
+          int v = 0;
+          if (row_ok)
+#pragma unroll
+            for (int c = 0; c < 4; ++c)
+              if (n + c < g.bn) v |= static_cast<int>(static_cast<uint8_t>(src[c])) << (8 * c);
+          dst[r] = v;
+        }
       }
-      __syncthreads();
+    }
+  };
+
+  // Transpose this thread's landed blocks of unit u in place into B-fragment
+  // words (column n's word holds rows 4kw .. 4kw+3); OR into *mask the n8
+  // tiles and the 32-row steps that hold a nonzero code. Only the thread
+  // that copied a block reads it, so the copy needs no barrier.
+  auto convert = [&](int u, unsigned* mask) {
+    int* wd = ws(u);
 #pragma unroll
-      for (int k = 0; k < kSliceK; ++k) {  // rows past kc hold zeros
-        Acc av[RM], bv[kColsPerThread];
+    for (int q = 0; q < kImWBlocks; ++q) {
+      int4* p = reinterpret_cast<int4*>(wd + (warp + kImWarps * q) * kImPitchW + lane * 4);
+      const int4 v = transpose4x4_s8(*p);
+      *p = v;
+      // a warp's 32 blocks are one word row (of step q) over all 16 n8 tiles
+      const unsigned m =
+          __reduce_or_sync(0xffffffffu, (v.x | v.y | v.z | v.w) ? 1u << (lane / 2) : 0u);
+      if (lane == 0 && m != 0) atomicOr(mask, m | (1u << (16 + q)));
+    }
+  };
+
+  int acc[kImTiles][4];
 #pragma unroll
-        for (int a = 0; a < RM; ++a) av[a] = xs[ty + kTy * a][k];
+  for (int n = 0; n < kImTiles; ++n)
 #pragma unroll
-        for (int b = 0; b < kColsPerThread; ++b) bv[b] = ws[k][tx + kTx * b];
+    for (int c = 0; c < 4; ++c) acc[n][c] = 0;
+  const int R0 = 16 * warp;
+  const bool active = R0 < g.bm;  // a warp whose rows are all past bm only copies
+  constexpr int R8 = 8 * kImPitchX / 4;  // eight x rows, in words
+
+  // The products of unit u up to its last nonzero n8 tile, over its 32-row
+  // steps that hold a nonzero weight code (a 16-row tail as one k16 step).
+  auto products = [&](int u, unsigned m) {
+    const int depth = (min(kImUnit, n_lanes - u * kImUnit) + 15) / 16 * 16;
+    const int n_hi = 32 - __clz(m & 0xffffu);
+    const int* xa = reinterpret_cast<const int*>(xs(u) + (R0 + gq) * kImPitchX) + tq;
+    const int* wb = ws(u) + tq * kImPitchW + gq;
 #pragma unroll
-        for (int a = 0; a < RM; ++a)
+    for (int st = 0; st < kImUnit / 32; ++st) {
+      if (32 * st >= depth) break;
+      if (!((m >> (16 + st)) & 1u)) continue;
+      const int* a = xa + 8 * st;
+      const int* b = wb + 8 * st * kImPitchW;
+      if (depth - 32 * st >= 32) {
+        const int a0 = a[0], a1 = a[R8], a2 = a[4], a3 = a[R8 + 4];
 #pragma unroll
-          for (int b = 0; b < kColsPerThread; ++b) acc[a][b] = mac(av[a], bv[b], acc[a][b]);
+        for (int n = 0; n < kImTiles; ++n) {
+          if (n >= n_hi) break;
+          mma_k32(acc[n], a0, a1, a2, a3, b[8 * n], b[4 * kImPitchW + 8 * n]);
+        }
+      } else {
+        const int a0 = a[0], a1 = a[R8];
+#pragma unroll
+        for (int n = 0; n < kImTiles; ++n) {
+          if (n >= n_hi) break;
+          mma_k16(acc[n], a0, a1, b[8 * n]);
+        }
+      }
+    }
+  };
+
+  // units 0 .. kImStages-2 are requested now, one cp.async group each
+  // (empty past the last unit, so that the group count stays fixed)
+#pragma unroll
+  for (int u = 0; u < kImStages - 1; ++u) {
+    if (u < n_units) stage(u);
+    cp_async_commit();
+  }
+  if (tid < 3) s_mask[tid] = 0;
+  for (int c = tid; c < g.bn; c += kImThreads) {
+    const float z = flush_epilogue<int>(0, epj, c);
+    s_z[c] = z;
+    s_z8[c] = out_int8 ? static_cast<int8_t>(z) : 0;
+  }
+  cp_async_wait<kImStages - 2>();  // this thread's copies of unit 0 have landed
+  __syncthreads();
+  if (n_units > 0) convert(0, &s_mask[0]);
+  __syncthreads();
+
+  unsigned any_n8 = 0;  // n8 tiles whose weights hold a nonzero code in some unit
+  for (int u = 0; u < n_units; ++u) {
+    // into the slot unit u-1 has left: every warp finished its products
+    // before the barrier that ended the last iteration
+    if (u + kImStages - 1 < n_units) stage(u + kImStages - 1);
+    cp_async_commit();
+    // unit u's mask; the one convert(u+2) fills next iteration was last
+    // read by products(u-1)
+    const unsigned m = s_mask[u % 3];
+    if (tid == 0) s_mask[(u + 2) % 3] = 0;
+    any_n8 |= m;
+    if (active) products(u, m);
+    if (u + 1 < n_units) {
+      cp_async_wait<kImStages - 2>();  // this thread's copies of unit u+1 have landed
+      convert(u + 1, &s_mask[(u + 1) % 3]);
+    }
+    __syncthreads();
+  }
+
+  // flush. The n8 tiles whose weights are zero in every unit hold the
+  // zero-accumulator row in every row: where the output rows allow 16-byte
+  // stores, the block writes them from s_z / s_z8 (16 codes or 4 floats a
+  // store); every other tile goes through the fragments: rows gq and gq + 8,
+  // columns 2*tq and 2*tq + 1 of each n8 tile.
+  const int n8_count = (g.bn + 7) / 8;
+  const unsigned dead = ~any_n8 & ((1u << n8_count) - 1u);
+  unsigned skip = 0;
+  if (out_int8 ? (g.bn % 16 == 0 && g.N % 16 == 0) : (g.bn % 4 == 0 && g.N % 4 == 0))
+    skip = out_int8 ? ((dead & (dead >> 1)) & 0x5555u) * 3u : dead;
+  if (skip != 0) {
+    const int per = out_int8 ? g.bn / 16 : g.bn / 4;  // 16-byte chunks per row
+    for (int e = tid; e < g.bm * per; e += kImThreads) {
+      const int r = e / per;
+      const int ch = e - r * per;
+      if (!((skip >> (out_int8 ? 2 * ch : ch / 2)) & 1u)) continue;
+      const size_t o = (static_cast<size_t>(i) * g.bm + r) * g.N + col0;
+      if (out_int8) {
+        *reinterpret_cast<int4*>(static_cast<int8_t*>(out) + o + 16 * ch) =
+            *reinterpret_cast<const int4*>(s_z8 + 16 * ch);
+      } else {
+        *reinterpret_cast<float4*>(static_cast<float*>(out) + o + 4 * ch) =
+            *reinterpret_cast<const float4*>(s_z + 4 * ch);
       }
     }
   }
-  flush_tile<T, Acc, RM>(acc, ep, out, out_int8, i, j, bm, bn, N, ty, tx);
+  if (!active) return;
+  const int r = R0 + gq;
+  const size_t row0 = (static_cast<size_t>(i) * g.bm + r) * g.N + col0;
+  if (out_int8) {
+    flush_frags<kOutI8, kImTiles, 1>(acc, epj, out, row0, g.N, g.bm - r, 2 * tq, g.bn, skip);
+  } else {
+    flush_frags<kOutF32, kImTiles, 1>(acc, epj, out, row0, g.N, g.bm - r, 2 * tq, g.bn, skip);
+  }
 }
 
-template <typename T, typename Acc>
-static cudaError_t launch(const void* x, const void* w, const int* idx, const int* cnt,
-                          const Epilogue& ep, void* out, int out_int8, int M, int K, int N, int bm,
-                          int bk, int bn, int max_nnz, cudaStream_t stream) {
-  const dim3 grid(M / bm, N / bn);
-  const dim3 block(kThreads);
-  const T* xt = static_cast<const T*>(x);
-  const T* wt = static_cast<const T*>(w);
-#define HAPM_BSM_LAUNCH(RM)                                                               \
-  block_sparse_matmul_kernel<T, Acc, RM><<<grid, block, 0, stream>>>(                     \
-      xt, wt, idx, cnt, ep, out, out_int8, K, N, bm, bk, bn, max_nnz)
-  if (bm <= 16) {
-    HAPM_BSM_LAUNCH(1);
-  } else if (bm <= 32) {
-    HAPM_BSM_LAUNCH(2);
-  } else if (bm <= 64) {
-    HAPM_BSM_LAUNCH(4);
-  } else {
-    HAPM_BSM_LAUNCH(8);
-  }
-#undef HAPM_BSM_LAUNCH
+template <int XV, bool kWVec>
+static cudaError_t launch_imma_instance(const void* x, const void* w, const int* idx,
+                                        const int* cnt, const Epilogue& ep, void* out,
+                                        int out_int8, const ImGeom& g, int blocks,
+                                        cudaStream_t stream) {
+  auto kernel = block_sparse_matmul_imma_kernel<XV, kWVec>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kImSmemBytes);
+  if (err != cudaSuccess) return err;
+  kernel<<<blocks, kImThreads, kImSmemBytes, stream>>>(static_cast<const int8_t*>(x),
+                                                       static_cast<const int8_t*>(w), idx, cnt,
+                                                       ep, out, out_int8, g);
   return cudaGetLastError();
+}
+
+static cudaError_t launch_imma(const void* x, const void* w, const int* idx, const int* cnt,
+                               const Epilogue& ep, void* out, int out_int8, int M, int K, int N,
+                               int bm, int bk, int bn, int max_nnz, cudaStream_t stream) {
+  // x copies of V bytes stay inside one K-tile and on V-byte addresses when
+  // V divides x's address, K and bk
+  auto x_vec = [&](int v) {
+    return reinterpret_cast<uintptr_t>(x) % v == 0 && K % v == 0 && bk % v == 0;
+  };
+  const bool w_vec = reinterpret_cast<uintptr_t>(w) % 4 == 0 && N % 4 == 0 && bn % 4 == 0;
+  const int xv = !w_vec ? 1 : x_vec(16) ? 16 : x_vec(8) ? 8 : x_vec(4) ? 4 : 1;
+  const ImGeom g{K, N, bm, bk, bn, max_nnz, N / bn, make_fast_div(static_cast<unsigned>(bk))};
+  const long long blocks = static_cast<long long>(M / bm) * g.n_cols;
+  if (blocks > INT_MAX) return cudaErrorInvalidValue;
+  const int nb = static_cast<int>(blocks);
+  switch (xv) {
+    case 16:
+      return launch_imma_instance<16, true>(x, w, idx, cnt, ep, out, out_int8, g, nb, stream);
+    case 8:
+      return launch_imma_instance<8, true>(x, w, idx, cnt, ep, out, out_int8, g, nb, stream);
+    case 4:
+      return launch_imma_instance<4, true>(x, w, idx, cnt, ep, out, out_int8, g, nb, stream);
+    default:
+      return launch_imma_instance<1, false>(x, w, idx, cnt, ep, out, out_int8, g, nb, stream);
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -476,16 +740,18 @@ static cudaError_t launch_mma(const void* x, const void* w, const int* idx, cons
 // in the operand's float type (f32 for int8 codes), or int8 codes when
 // out_scale is given. x is zero past `x_lanes` (1..bk) lanes of every bk-lane
 // K-tile: the f32 / bf16 kernel reads and multiplies none of them (x_lanes =
-// bk reads all; int8 codes always read all). Requires M % bm == 0,
-// K % bk == 0, N % bn == 0, bm <= 128, bn <= 128. Returns the launch's
-// cudaError_t (0 = launched).
+// bk reads all). The int8 kernel ignores x_lanes: it reads every lane of
+// every live tile, and multiplies only the n8 tiles and 32-row steps whose
+// weight codes it found nonzero. Requires M % bm == 0, K % bk == 0,
+// N % bn == 0, bm <= 128, bn <= 128. Returns the launch's cudaError_t
+// (0 = launched).
 extern "C" int hapm_block_sparse_matmul(const void* x, const void* w, const int* idx,
                                         const int* cnt, const float* scale, const float* bias,
                                         const float* out_scale, void* out, int M, int K, int N,
                                         int bm, int bk, int bn, int max_nnz, int dtype, int relu,
                                         int x_lanes, void* stream) {
   using namespace hapm;
-  if (bm < 1 || bm > kTy * 8 || bn < 1 || bn > kMaxBn || bk < 1 || M % bm || K % bk || N % bn ||
+  if (bm < 1 || bm > kMmRows || bn < 1 || bn > kMaxBn || bk < 1 || M % bm || K % bk || N % bn ||
       x_lanes < 1 || x_lanes > bk)
     return static_cast<int>(cudaErrorInvalidValue);
   const Epilogue ep{scale, bias, out_scale, relu};
@@ -501,7 +767,7 @@ extern "C" int hapm_block_sparse_matmul(const void* x, const void* w, const int*
                                       x_lanes, st);
       break;
     case kI8:
-      err = launch<int8_t, int>(x, w, idx, cnt, ep, out, out_int8, M, K, N, bm, bk, bn, max_nnz, st);
+      err = launch_imma(x, w, idx, cnt, ep, out, out_int8, M, K, N, bm, bk, bn, max_nnz, st);
       break;
     default:
       err = cudaErrorInvalidValue;

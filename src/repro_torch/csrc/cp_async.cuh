@@ -23,6 +23,15 @@ __device__ __forceinline__ void cp_async16_zfill(void* dst, const void* src, int
                "r"(src_bytes));
 }
 
+// V bytes (4, 8 or 16) from src to dst through L1; the first `src_bytes`
+// (0 or V) are read, the rest of the V are written as zeros
+template <int V>
+__device__ __forceinline__ void cp_async_zfill(void* dst, const void* src, int src_bytes) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(s), "l"(src), "n"(V),
+               "r"(src_bytes));
+}
+
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }

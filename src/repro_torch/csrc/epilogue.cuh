@@ -21,10 +21,9 @@ namespace hapm {
 
 constexpr float kInt8MaxCode = 127.0f;
 
-// Thread layout of the CUDA-core kernels (K1's int8 instance, K4): 16 x 16
-// threads per block; thread (ty, tx) owns output rows ty + 16*a (a < RM) and
-// columns tx + 16*b (b < kColsPerThread) of the (bm <= 128, bn <= 128)
-// output tile.
+// Thread layout of the CUDA-core kernel (K4): 16 x 16 threads per block;
+// thread (ty, tx) owns output rows ty + 16*a (a < RM) and columns tx + 16*b
+// (b < kColsPerThread) of the (bm <= 128, bn <= 128) output tile.
 constexpr int kTx = 16;
 constexpr int kTy = 16;
 constexpr int kThreads = kTx * kTy;
@@ -70,12 +69,6 @@ __device__ __forceinline__ void store_out(void* out, size_t o, float v, int out_
     reinterpret_cast<float*>(out)[o] = v;
   }
 }
-
-// int8 code -> int32 accumulator, and acc + a*b as an exact int32
-// multiply-add (K1's int8 instance)
-template <typename Acc>
-__device__ __forceinline__ Acc to_acc(int8_t v) { return static_cast<Acc>(v); }
-__device__ __forceinline__ int mac(int a, int b, int c) { return a * b + c; }
 
 // Flush the thread's RM x kColsPerThread accumulators of output tile
 // (i, j) through the epilogue into `out` (row-major, n_total columns).

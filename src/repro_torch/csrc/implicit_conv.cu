@@ -137,6 +137,7 @@
 #include "cp_async.cuh"
 #include "epilogue.cuh"
 #include "mma_f32.cuh"
+#include "mma_s8.cuh"
 
 namespace hapm {
 
@@ -247,23 +248,6 @@ __host__ __device__ inline ImmaSmem imma_smem(const ConvGeom& g, int full) {
   return s;
 }
 
-__device__ __forceinline__ void mma_k32(int (&c)[4], int a0, int a1, int a2, int a3, int b0,
-                                        int b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ void mma_k16(int (&c)[4], int a0, int a1, int b0) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.s32.s8.s8.s32 "
-      "{%0,%1,%2,%3}, {%4,%5}, {%6}, {%0,%1,%2,%3};\n"
-      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-      : "r"(a0), "r"(a1), "r"(b0));
-}
-
 // Copy `rows` window rows of `segs` runs of `len` contiguous bytes each
 // (run s of row r starts at src_row(r) + s*Cp) into win, run after run
 // `dpitch` bytes apart, V bytes a copy.
@@ -363,16 +347,7 @@ __device__ __forceinline__ void convert_unit(const int8_t* stage, int* buf, unsi
     const int kw = blk / (kMaxBn / 4);
     if (kw * 4 >= rows) break;
     const int n = (blk % (kMaxBn / 4)) * 4;
-    const int4 r = *reinterpret_cast<const int4*>(stage + blk * 16);
-    const unsigned lo01 = __byte_perm(r.x, r.y, 0x5140);
-    const unsigned lo23 = __byte_perm(r.z, r.w, 0x5140);
-    const unsigned hi01 = __byte_perm(r.x, r.y, 0x7362);
-    const unsigned hi23 = __byte_perm(r.z, r.w, 0x7362);
-    int4 v;
-    v.x = __byte_perm(lo01, lo23, 0x5410);
-    v.y = __byte_perm(lo01, lo23, 0x7632);
-    v.z = __byte_perm(hi01, hi23, 0x5410);
-    v.w = __byte_perm(hi01, hi23, 0x7632);
+    const int4 v = transpose4x4_s8(*reinterpret_cast<const int4*>(stage + blk * 16));
     *reinterpret_cast<int4*>(buf + kw * kBPitch + n) = v;
     // a warp's 32 blocks share one word row and span all 16 n8 tiles
     const unsigned m = __reduce_or_sync(0xffffffffu, (v.x | v.y | v.z | v.w) ? 1u << (n / 8) : 0u);

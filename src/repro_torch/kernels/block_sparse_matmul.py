@@ -20,8 +20,9 @@ columns still flush ``bias`` (then ReLU), matching the dense
 Two implementations of the one function live here:
 
 - :func:`block_sparse_matmul` — the wrapper. For a CUDA tensor it launches
-  the hand-written kernel ``csrc/block_sparse_matmul.cu`` (or raises); for
-  a CPU tensor, and only then, it runs the plain version.
+  the hand-written kernel ``csrc/block_sparse_matmul.cu`` (or raises): both
+  its instances, int8 codes and f32/bf16 operands, multiply on the tensor
+  cores. For a CPU tensor, and only then, it runs the plain version.
 - :func:`block_sparse_matmul_plain` — the same function in plain PyTorch:
   same packed operands and tables, same epilogue order, a loop over live
   tiles. It is the CPU path and the yardstick the kernel is held to on the
@@ -246,7 +247,9 @@ def block_sparse_matmul(
     the caller's promise that ``x`` is zero past that many lanes of every
     ``bk``-lane K-tile, as the packed output gradient of a conv layout is
     past its ``output_lanes`` (the dX on the transposed plan): the f32/bf16
-    kernel then reads and multiplies none of them."""
+    kernel then reads and multiplies none of them. The int8 kernel reads
+    every lane and multiplies only the 8-lane output groups and 32-row K
+    steps whose weight codes it finds nonzero, which gives the same sums."""
     if not x.is_cuda:
         return block_sparse_matmul_plain(x, w, idx, cnt, bias, scale,
                                          out_scale, block=block, bm=bm,

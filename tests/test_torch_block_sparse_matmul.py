@@ -259,3 +259,67 @@ def test_int8_conv_ref_equal():
     np.testing.assert_allclose(TR.masked_dense_matmul_ref(_t(a), _t(b), m).numpy(),
                                np.asarray(JR.masked_dense_matmul_ref(_j(a), _j(b), _j(m))),
                                atol=1e-5)
+
+
+# The int8 instance on the materializing path's operands: a conv's patch
+# codes and weight codes packed by ``conv_gemm_layout`` (the unpacked 3x3
+# and 1x1 layouts' (16, 128) and (8, 128) tiles, 12 real lanes each; the
+# packed layout's (128, 128) tiles), half the groups pruned. Codes span the
+# whole int8 range, -128 included; the weight codes are zero past the
+# layout's lanes by construction, and column 0 keeps nonzero codes only in
+# the last n8 tile that holds a real lane. (kernel size, packed)
+CONV_LAYOUT_CASES = {"unpacked_3x3": (3, False), "unpacked_1x1": (1, False),
+                     "packed_3x3": (3, True)}
+
+
+def _conv_layout_operands(name, seed):
+    from repro_torch.core.groups import fpga_conv_groups
+    from repro_torch.kernels.conv_lowering import im2col_patches
+    from repro_torch.sparse.conv_plan import conv_gemm_layout
+    k, packed = CONV_LAYOUT_CASES[name]
+    cin, cout, n_cu = 4, 24, 12
+    rs = np.random.RandomState(seed)
+    spec = fpga_conv_groups((k, k, cin, cout), n_cu)
+    layout = conv_gemm_layout(spec, packed=packed)
+    gm = (rs.rand(spec.num_groups) < 0.5).astype(np.float32)
+    gm.reshape(cin, -1)[0, :] = 1             # every column has a live group
+    w = torch.from_numpy(rs.randint(-128, 128, (k, k, cin, cout)).astype(np.int8))
+    w = w * spec.expand(gm).to(torch.int8)
+    wp = layout.pack_weight(w).contiguous()
+    bn = layout.block[1]
+    lanes = torch.nonzero(wp[:, :bn].any(dim=0)).flatten()
+    last = int(lanes.max()) // 8 * 8            # the last n8 tile with a real lane
+    wp[:, :last] = 0
+    assert bool(wp[:, last:bn].any()) and not bool(wp[:, layout.output_lanes:bn].any())
+    wp[tuple(torch.nonzero(wp[:, :bn])[0])] = -128
+    xa = torch.from_numpy(rs.randint(-128, 128, (1, 4, 6, cin)).astype(np.int8))
+    xa[0, 1, 2] = -128
+    p2d = layout.pack_patches(im2col_patches(xa, k, k, 1, "SAME")).contiguous()
+    plan = TB.plan_from_tile_mask(layout.tile_mask(gm), layout.block)
+    N = wp.shape[1]
+    rows = {"scale": ((rs.rand(N) + 0.5) * 1e-3).astype(np.float32),
+            "bias": rs.randn(N).astype(np.float32),
+            "out_scale": np.full(N, 16.0, np.float32)}
+    return p2d.numpy(), wp.numpy(), plan, layout.block, rows
+
+
+@pytest.mark.parametrize("bm", [8, 24])
+@pytest.mark.parametrize("epilogue", ["f32", "requant"])
+@pytest.mark.parametrize("layout", list(CONV_LAYOUT_CASES))
+def test_int8_conv_layout_operands_match_jax(layout, epilogue, bm):
+    """The port's wrapper (plain version on CPU tensors) and JAX's kernel in
+    interpret mode on the same packed conv operands, bit-equal: f32 out
+    (dequant, ReLU: one rounding) or requantized codes (dequant, bias, ReLU,
+    requantize); the f32 sums also equal an int64 oracle."""
+    x, w, plan, block, rows = _conv_layout_operands(layout, {"f32": 21, "requant": 22}[epilogue])
+    assert x.shape[0] == 24 and (x == -128).any() and (w == -128).any()
+    kw = dict(scale=rows["scale"], relu=True)
+    if epilogue == "requant":
+        kw.update(bias=rows["bias"], out_scale=rows["out_scale"])
+    jy, ty = _both(x, w, plan, block, bm, **kw)
+    np.testing.assert_array_equal(ty, jy)
+    if epilogue == "f32":
+        acc = (x.astype(np.int64) @ w.astype(np.int64)).astype(np.float32)
+        np.testing.assert_array_equal(ty, np.maximum(acc * rows["scale"], np.float32(0)))
+    else:
+        assert ty.dtype == np.int8 and np.abs(ty.astype(np.int32)).max() <= 127

@@ -6,7 +6,13 @@ refusals and the bind's (``bm`` above 128 on CUDA); for the block-sparse
 matmul's f32 and bf16 instance (tensor-core products over the lanes that
 can be nonzero) every tile shape of the forward and of the dX, ``x_lanes``
 of the whole tile, 12, 120 and 1 lane, element copies of an unaligned x,
-the pruned column's flush and two launches bit-identical; for the implicit conv
+the pruned column's flush and two launches bit-identical; for its int8
+instance (tensor-core products over the n8 tiles that hold a nonzero code)
+bk 8-128 with codes in the next, dead tile, bn 8-128, bm 8-128, weights
+nonzero only in some lanes of a tile or in none of a live tile, -128 codes
+with sums past 2^24, 8-, 4-byte and element copies, the packed operands of
+the CIFAR net's eight conv geometries in both layouts, every epilogue, the
+empty column's flush and two launches bit-identical; for the implicit conv
 kernel's f32 (3xTF32) and bf16 instances (tensor-core products) the row
 shape, a column whose last nonzero lane lies inside an n8 tile, live tiles
 whose weights are all zero, K-tiles over two weight units, narrow window
@@ -173,6 +179,204 @@ def test_block_sparse_matmul_tensor_core_element_copies(dev, block, lanes, dtype
     assert torch.equal(got, BSM.block_sparse_matmul(x, w, idx, cnt, **kw))
     _check(got, BSM.block_sparse_matmul_plain(x, w, idx, cnt, **kw),
            1e-4 if dtype == torch.float32 else 3.2e-2)
+
+
+# K1's int8 instance (tensor cores): every epilogue of the int8 contract
+IMMA_EPILOGUES = ("f32", "f32_bias_relu", "requant")
+
+
+def _imma_codes(rs, shape):
+    """int8 codes over the whole range, -128 included."""
+    return torch.from_numpy(rs.randint(-128, 128, shape).astype(np.int8))
+
+
+def _imma_rows(rs, N):
+    return dict(bias=torch.from_numpy(rs.randn(N).astype(np.float32)),
+                scale=torch.from_numpy(((rs.rand(N) + 0.5) * 1e-3).astype(np.float32)),
+                out_scale=torch.full((N,), 16.0))
+
+
+def _imma_check(x, w, idx, cnt, rows, block, bm, twice=True):
+    """K1's int8 kernel bit-equal to its plain version in each epilogue of
+    IMMA_EPILOGUES (and, with ``twice``, two launches bit-identical);
+    returns the f32 outputs of the first epilogue."""
+    first = None
+    for epi in IMMA_EPILOGUES:
+        kw = dict(block=block, bm=bm, scale=rows["scale"])
+        if epi != "f32":
+            kw.update(bias=rows["bias"], relu=True)
+        if epi == "requant":
+            kw["out_scale"] = rows["out_scale"]
+        before = BSM.launch_count()
+        got = BSM.block_sparse_matmul(x, w, idx, cnt, **kw)
+        if twice:
+            again = BSM.block_sparse_matmul(x, w, idx, cnt, **kw)
+        torch.cuda.synchronize()
+        assert BSM.launch_count() == before + 1 + twice
+        if twice:
+            assert torch.equal(got, again), epi
+        _check(got, BSM.block_sparse_matmul_plain(x, w, idx, cnt, **kw), 0)
+        first = got if first is None else first
+    return first
+
+
+@pytest.mark.parametrize("bm", [8, 16, 24, 40, 64, 96, 128])
+@pytest.mark.parametrize("bn", [8, 16, 24, 64, 128])
+@pytest.mark.parametrize("bk", [8, 16, 24, 32, 128])
+def test_block_sparse_matmul_imma_tiles(dev, bk, bn, bm):
+    """Every tile shape the int8 instance takes: codes over the whole range
+    everywhere, dead tiles included, so that a read past a live tile into
+    the next (dead) one shows. Column 0 has the even K-tiles live (each
+    followed by a dead one), column 1 a random half, column 2 none (it
+    flushes the epilogue of a zero accumulator)."""
+    rs = np.random.RandomState(bk * 1000 + bn * 10 + bm)
+    nK, M = 6, 2 * bm
+    tm = np.zeros((nK, 3), bool)
+    tm[::2, 0] = True
+    tm[:, 1] = rs.rand(nK) < 0.5
+    tm[1, 1] = True
+    plan = TB.plan_from_tile_mask(tm, (bk, bn))
+    to = lambda t: t.to(dev)
+    x, w = _imma_codes(rs, (M, nK * bk)), _imma_codes(rs, (nK * bk, 3 * bn))
+    rows = {k: to(v) for k, v in _imma_rows(rs, 3 * bn).items()}
+    idx, cnt = to(torch.from_numpy(plan.idx)), to(torch.from_numpy(plan.cnt))
+    assert int(cnt[2]) == 0
+    got = _imma_check(to(x), to(w), idx, cnt, rows, (bk, bn), bm)
+    assert torch.equal(got[:, 2 * bn:], torch.zeros(M, bn, device=dev))
+
+
+@pytest.mark.parametrize("block", [(16, 128), (8, 128), (128, 128), (24, 64), (32, 24)])
+@pytest.mark.parametrize("pattern", ["past_lane_12", "n8_tile_0", "last_n8_tile",
+                                     "zero_live_tile"])
+def test_block_sparse_matmul_imma_weight_lanes(dev, block, pattern):
+    """Weights whose nonzero codes lie only in some lanes of each output
+    tile: only past lane 12, only in n8 tile 0, only in the last n8 tile
+    (a partial one at bn = 24), or none at all in one live tile of each
+    column. The kernel multiplies up to the last n8 tile it finds a nonzero
+    code in; the rest must hold the zero-accumulator epilogue."""
+    bk, bn = block
+    rs = np.random.RandomState(bk + bn + len(pattern))
+    nK, M, bm = 5, 96, 48
+    tm = rs.rand(nK, 3) < 0.6
+    tm[0, :2] = True
+    tm[:, 2] = False
+    plan = TB.plan_from_tile_mask(tm, block)
+    x, w = _imma_codes(rs, (M, nK * bk)), _imma_codes(rs, (nK * bk, 3 * bn))
+    lanes = w.view(nK * bk, 3, bn)
+    if pattern == "past_lane_12":
+        lanes[:, :, :min(12, bn)] = 0
+    elif pattern == "n8_tile_0":
+        lanes[:, :, 8:] = 0
+    elif pattern == "last_n8_tile":
+        lanes[:, :, :(bn - 1) // 8 * 8] = 0
+    else:
+        w[:bk] = 0                      # K-tile 0 is live in columns 0 and 1
+    to = lambda t: t.to(dev)
+    rows = {k: to(v) for k, v in _imma_rows(rs, 3 * bn).items()}
+    _imma_check(to(x), to(w), to(torch.from_numpy(plan.idx)),
+                to(torch.from_numpy(plan.cnt)), rows, block, bm)
+
+
+@pytest.mark.parametrize("bm", [8, 128])
+def test_block_sparse_matmul_imma_extreme_codes(dev, bm):
+    """Codes of -128 and 127 only, 16 live K-tiles of 128 lanes: sums up to
+    2048 * 2^14, past 2^24, where the int32 -> f32 conversion rounds."""
+    rs = np.random.RandomState(bm)
+    M, nK, bk, bn = 2 * bm, 16, 128, 128
+    pick = lambda shape: torch.from_numpy(
+        np.where(rs.rand(*shape) < 0.5, -128, 127).astype(np.int8))
+    x, w = pick((M, nK * bk)), pick((nK * bk, 2 * bn))
+    x[0], w[:, 0] = -128, -128
+    tm = np.ones((nK, 2), bool)
+    plan = TB.plan_from_tile_mask(tm, (bk, bn))
+    to = lambda t: t.to(dev)
+    rows = {k: to(v) for k, v in _imma_rows(rs, 2 * bn).items()}
+    acc = REF.int_matmul_exact(to(x), to(w))
+    assert int(acc.abs().max()) > 2 ** 24
+    _imma_check(to(x), to(w), to(torch.from_numpy(plan.idx)),
+                to(torch.from_numpy(plan.cnt)), rows, (bk, bn), bm, twice=False)
+
+
+def _offset(t, nbytes):
+    """A copy of ``t`` whose data starts ``nbytes`` past an aligned address."""
+    flat = torch.empty(t.numel() + nbytes, dtype=t.dtype, device=t.device)
+    out = flat[nbytes:].view(t.shape)
+    out.copy_(t)
+    assert out.is_contiguous() and out.data_ptr() % 16 == nbytes % 16
+    return out
+
+
+# (variant, block): rows of 8 and 4 bytes, rows of odd length, operands one
+# byte past an aligned address, and a weight tile narrower than a 4-byte copy
+IMMA_COPY_CASES = [("k_multiple_of_8", (8, 128)), ("k_multiple_of_8", (24, 64)),
+                   ("k_multiple_of_4", (12, 128)), ("k_odd", (9, 128)),
+                   ("x_one_byte_off", (16, 128)), ("w_one_byte_off", (16, 128)),
+                   ("bn_6", (16, 6))]
+
+
+@pytest.mark.parametrize("variant,block", IMMA_COPY_CASES, ids=lambda v: str(v))
+def test_block_sparse_matmul_imma_copy_widths(dev, variant, block):
+    """Operands whose rows (K, N bytes) or pointers are not 16-byte aligned
+    take the same kernel with 8-, 4-byte or element copies: bit-equal to the
+    plain version, and (for a shifted operand) to the aligned copy's result."""
+    bk, bn = block
+    rs = np.random.RandomState(bk * 7 + bn)
+    nK, M, bm = 5, 80, 40
+    tm = rs.rand(nK, 4) < 0.5
+    tm[0, :3] = True
+    tm[:, 3] = False
+    plan = TB.plan_from_tile_mask(tm, block)
+    to = lambda t: t.to(dev)
+    x, w = to(_imma_codes(rs, (M, nK * bk))), to(_imma_codes(rs, (nK * bk, 4 * bn)))
+    rows = {k: to(v) for k, v in _imma_rows(rs, 4 * bn).items()}
+    idx, cnt = to(torch.from_numpy(plan.idx)), to(torch.from_numpy(plan.cnt))
+    want = _imma_check(x, w, idx, cnt, rows, block, bm)
+    if variant in ("x_one_byte_off", "w_one_byte_off"):
+        xs = _offset(x, 1) if variant == "x_one_byte_off" else x
+        ws = _offset(w, 1) if variant == "w_one_byte_off" else w
+        assert torch.equal(_imma_check(xs, ws, idx, cnt, rows, block, bm), want)
+
+
+# the eight layer geometries of the CIFAR net: (k, cin, cout, stride, h)
+CIFAR_GEOMS = [(3, 3, 16, 1, 32), (3, 16, 16, 1, 32), (3, 16, 32, 2, 32), (3, 32, 32, 1, 16),
+               (1, 16, 32, 2, 32), (3, 32, 64, 2, 16), (3, 64, 64, 1, 8), (1, 32, 64, 2, 16)]
+
+
+@pytest.mark.parametrize("geom", CIFAR_GEOMS, ids=lambda g: "x".join(map(str, g)))
+@pytest.mark.parametrize("packed", [False, True])
+@pytest.mark.parametrize("mode", ["int8", "streamed"])
+def test_block_sparse_matmul_imma_conv_layouts(dev, geom, packed, mode):
+    """The materializing path's operands: int8 activation codes' patches and
+    the masked weight codes packed by ``conv_gemm_layout`` (unpacked 16- or
+    8-row tiles, 12 real lanes of 128; packed (128, 128) tiles), half the
+    groups pruned and the last f-block column entirely, rows padded to the
+    adaptive bm, at batch 2; f32 out (``int8``) or requantized codes
+    (``streamed``), bias and ReLU fused."""
+    from repro_torch.kernels.conv_lowering import im2col_patches
+    k, cin, cout, stride, h = geom
+    rs = np.random.RandomState(sum(geom) + packed)
+    layout = TP.conv_gemm_layout(TG.fpga_conv_groups((k, k, cin, cout), 12), packed=packed)
+    gm = (rs.rand(layout.spec.num_groups) < 0.5).astype(np.float32)
+    gm.reshape(cin, -1)[:, -1] = 0
+    w = torch.from_numpy((rs.randn(k, k, cin, cout) * np.sqrt(2.0 / (k * k * cin))
+                          ).astype(np.float32)).to(dev)
+    x = torch.from_numpy(np.maximum(rs.randn(2, h, h, cin), 0).astype(np.float32)).to(dev)
+    q = TQ.QuantSpec.calibrate(w)
+    wp = layout.pack_weight(q.weight_codes(layout.spec.expand(gm).to(dev) * w)).contiguous()
+    p2d = layout.pack_patches(im2col_patches(q.act_codes(x), k, k, stride, "SAME"))
+    bm = TP.adaptive_bm(p2d.shape[0])
+    p2d, _ = OPS._pad_rows(p2d, bm)
+    plan = layout.plan(gm)
+    kw = dict(block=layout.block, bm=bm, relu=True, scale=layout.pack_bias(
+        q.dequant_row(cout, dev)), bias=layout.pack_bias(
+        torch.from_numpy(rs.randn(cout).astype(np.float32)).to(dev)))
+    if mode == "streamed":
+        kw["out_scale"] = layout.pack_bias(torch.full((cout,), 16.0, device=dev))
+    idx, cnt = (torch.from_numpy(a).to(dev) for a in (plan.idx, plan.cnt))
+    assert int((cnt == 0).sum()) >= (0 if packed else 1)
+    got = BSM.block_sparse_matmul(p2d.contiguous(), wp, idx, cnt, **kw)
+    torch.cuda.synchronize()
+    _check(got, BSM.block_sparse_matmul_plain(p2d.contiguous(), wp, idx, cnt, **kw), 0)
 
 
 def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
