@@ -9,7 +9,7 @@ Run ``python3 chip_smoke.py`` from the repository root. It
    ``HMMA`` in the f32 (3xTF32) and bf16 ones; ``HMMA`` in every instance
    of the weight-gradient kernel (K3) and of the block-sparse matmul's
    float kernel (K1, f32 and bf16), and ``IMMA`` in every instance of K1's
-   int8 kernel,
+   int8 kernel and of the dense int8 matmul (K4),
 2. holds each kernel against its plain PyTorch version on the GPU at the
    layer shapes of the full-width ``ResNetConfig()`` (bit equality for int8
    outputs and skip counters, <= 1e-4 for f32, K2's f32 instance also
@@ -48,9 +48,12 @@ Run ``python3 chip_smoke.py`` from the repository root. It
 5. holds the dense int8 matmul kernel (K4) to its plain version and to
    ``int8_matmul_ref`` bit for bit at the shapes of the JAX package's tests,
    the widest conv's im2col GEMM at batch 128, 4096^3 and a depth whose
-   sums pass 2^24, timing it against ``torch._int_mm``; then drives
+   sums pass 2^24, timing it against ``torch._int_mm`` with the block tile
+   and block count it picked, and the SM clock and power draw read before
+   and after 4096^3; then drives
    ``fixed_point_matmul`` forward and backward on the card against a CPU
-   run of the port (the fixed-point path, K4),
+   run of the port (the fixed-point path, K4) and takes the device time of
+   its forward from the profiler (``fixed_point_timing``),
 6. prices the full-width HAPM network against uniform pruning at the same
    element sparsity with ``accel.simulate(measure_dsb=True)`` on the card,
    on the paper's three FPGA boards (the pricing path: the activation
@@ -210,13 +213,15 @@ K2_FLOAT_KERNEL = "implicit_conv_kernel"
 K3_KERNEL = "grad_weight_stack_kernel"
 K1_FLOAT_KERNEL = "block_sparse_matmul_mma_kernel"
 K1_INT8_KERNEL = "block_sparse_matmul_imma_kernel"
+K4_KERNEL = "int8_matmul_imma_kernel"
 
 
 def tensor_core_instances(require: bool = True) -> dict:
     """{"int8": {instance: IMMA instructions}, "f32": {instance: HMMA
     instructions}, "bf16": {...}} for K2, {"k3_f32": ..., "k3_bf16": ...}
     for K3, {"k1_f32": ..., "k1_bf16": ...} for K1's float instances and
-    {"k1_int8": ...} (IMMA) for its int8 ones, from ``cuobjdump -sass`` of the
+    {"k1_int8": ...} (IMMA) for its int8 ones, {"k4": ...} (IMMA) for K4's,
+    from ``cuobjdump -sass`` of the
     built library, and "k2_int8_sass": {instance: sha1 of its instructions}
     (addresses and encodings dropped), so that two builds of K2 can be told
     equal. With ``require`` it raises unless each of the four int8 instances
@@ -224,8 +229,8 @@ def tensor_core_instances(require: bool = True) -> dict:
     instructions, each of its four f32 and four bf16 instances holds float
     ones (HMMA), each of K3's and of K1's four f32 and four bf16 instances
     (16-byte or element copies, narrow or wide lanes) holds HMMA, and each of
-    K1's four int8 instances holds IMMA: the proof that all of K1's, K2's and
-    K3's products run on the tensor cores."""
+    K1's four int8 instances and each of K4's twelve holds IMMA: the proof
+    that all of K1's, K2's, K3's and K4's products run on the tensor cores."""
     tool = os.path.join(os.path.dirname(_build.find_nvcc()), "cuobjdump")
     sass = subprocess.run([tool, "-sass", str(_build.library_path())], text=True,
                           stdout=subprocess.PIPE, stderr=subprocess.STDOUT, timeout=300)
@@ -251,9 +256,11 @@ def tensor_core_instances(require: bool = True) -> dict:
     out["bf16"] = {f: n for f, n in floats.items() if "bfloat16" in f}
     out["f32"] = {f: n for f, n in floats.items() if "bfloat16" not in f}
     out["k1_int8"] = {f: n["IMMA"] for f, n in counts.items() if K1_INT8_KERNEL in f}
+    out["k4"] = {f: n["IMMA"] for f, n in counts.items() if K4_KERNEL in f}
     wanted = [("K2", kind, op, out[kind]) for kind, op in
               (("int8", "IMMA"), ("f32", "HMMA"), ("bf16", "HMMA"))]
     wanted.append(("K1", "int8", "IMMA", out["k1_int8"]))
+    wanted.append(("K4", "int8", "IMMA", out["k4"]))
     for tag, name in (("k3", K3_KERNEL), ("k1", K1_FLOAT_KERNEL)):
         found = {f: n["HMMA"] for f, n in counts.items() if name in f}
         out[f"{tag}_bf16"] = {f: n for f, n in found.items() if "bfloat16" in f}
@@ -261,7 +268,8 @@ def tensor_core_instances(require: bool = True) -> dict:
         for kind in ("f32", "bf16"):
             wanted.append((tag.upper(), kind, "HMMA", out[f"{tag}_{kind}"]))
     for tag, kind, op, found in wanted:
-        if require and (len(found) < 4 or not all(found.values())):
+        # K4: three block tiles x four copy widths; the others: four or more
+        if require and (len(found) < (12 if tag == "K4" else 4) or not all(found.values())):
             raise AssertionError(f"{tag}'s {kind} instances lack {op} instructions: {found}")
     return out
 
@@ -558,7 +566,7 @@ def compare(name: str, got, want, case) -> float:
 OWN_KERNELS = {"implicit_block_sparse_conv": ("implicit_conv_kernel",),
                "block_sparse_matmul": (K1_INT8_KERNEL, K1_FLOAT_KERNEL),
                "block_sparse_grad_weight": (K3_KERNEL, "grad_weight_reduce_kernel"),
-               "int8_matmul": ("int8_matmul_kernel",)}
+               "int8_matmul": (K4_KERNEL,)}
 
 
 def profiler_device_ms(fn, device, reps: int):
@@ -1389,6 +1397,14 @@ def int8_codes(real, padded, rs):
     return x, w
 
 
+def clocks_and_power() -> str:
+    """The card's SM clock and power draw now, as ``nvidia-smi`` prints them."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,power.draw", "--format=csv,noheader"],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True, timeout=60)
+    return out.stdout.strip().splitlines()[0] if out.stdout.strip() else "unknown"
+
+
 def gemm_bound(m, k, n, scale_len):
     """(ms, by): int8 operands read once, the scale row read once, the f32
     output written once; 2*m*k*n int8 operations."""
@@ -1401,7 +1417,10 @@ def phase_kernels_int8_matmul(device, reps: int, plain_reps: int):
     """K4 at every shape of INT8_SHAPES with both scale forms: bit-equal to
     ``int8_matmul_plain`` and to ``int8_matmul_ref`` on the card, two
     launches bit-identical; timed with the scalar scale (the fixed-point
-    path's). Returns (worst error, the row of the representative shape)."""
+    path's), each row with the block tile and block count the kernel picked
+    (``None`` on a tree whose kernel does not report them); at 4096^3 the SM
+    clock and power draw before the timing, while 2000 launches run, and
+    after. Returns (worst error, the row of the representative shape)."""
     rs = np.random.RandomState(13)
     rows, rep = [], {}
     for label, real, padded in INT8_SHAPES:
@@ -1431,7 +1450,17 @@ def phase_kernels_int8_matmul(device, reps: int, plain_reps: int):
         run = lambda fn: fn(x, w, scale)
         row = {"shape": label, "M": M, "K": K, "N": N, "real": list(real),
                "max_abs_acc": acc_max, "max_abs_err": 0.0, "forms": list(scales)}
+        tile = I8.kernel_tile(M, N, device) if hasattr(I8, "kernel_tile") else None
+        row["tile"], row["blocks"] = (None, None) if tile is None else (list(tile[:2]), tile[2])
+        if label == "square_4096":
+            row["smi_before"] = clocks_and_power()
         row["ms"] = device_ms(lambda: run(I8.int8_matmul), device, reps)
+        if label == "square_4096":
+            for _ in range(2000):
+                run(I8.int8_matmul)
+            row["smi_during"] = clocks_and_power()
+            sync(device)
+            row["smi_after"] = clocks_and_power()
         row["call_ms"] = time_ms(lambda: run(I8.int8_matmul), device, reps)
         row["plain_ms"] = time_ms(lambda: run(I8.int8_matmul_plain), device, plain_reps,
                                   warmup=1)
@@ -1447,6 +1476,9 @@ def phase_kernels_int8_matmul(device, reps: int, plain_reps: int):
         if label == INT8_REP:
             prof = profiler_device_ms(lambda: run(I8.int8_matmul), device, reps)
             row["profiler_ms"] = None if prof is None else prof["total_ms"]
+            # the kernel alone (the wrapper also copies the broadcast scale row)
+            row["profiler_kernel_ms"] = (None if prof is None
+                                         else prof["by_kernel"]["int8_matmul"])
             rep = row
     emit("kernels_int8_matmul", reps=reps, plain_reps=plain_reps, tol=0.0, cases=rows)
     return 0.0, rep
@@ -1500,6 +1532,20 @@ def phase_fixed_point(device):
         raise AssertionError(f"fixed_point: dx off the CPU run by {err['dx']}")
     if not err["dw"] <= FIXED_POINT_DW_REL_TOL * dw_scale:
         raise AssertionError(f"fixed_point: dw off the CPU run by {err['dw']}")
+
+
+def phase_fixed_point_timing(device, reps: int):
+    """Device time of one ``fixed_point_matmul`` forward at FIXED_POINT_SHAPE
+    from the profiler: every kernel and copy it puts on the card, and K4's
+    share (0 on a tree whose K4 kernel has another name)."""
+    M, K, N = FIXED_POINT_SHAPE
+    rs = np.random.RandomState(17)
+    x = torch.from_numpy(rs.uniform(-4, 4, (M, K)).astype(np.float32)).to(device)
+    w = torch.from_numpy(rs.uniform(-2, 2, (K, N)).astype(np.float32)).to(device)
+    prof = profiler_device_ms(lambda: fixed_point_matmul(x, w), device, reps)
+    emit("fixed_point_timing", shape=list(FIXED_POINT_SHAPE), reps=reps,
+         forward_device_ms=None if prof is None else prof["total_ms"],
+         forward_k4_ms=None if prof is None else prof["by_kernel"]["int8_matmul"])
 
 
 # ---------------------------------------------------------------------------
@@ -1632,7 +1678,8 @@ def kernels_line(paths, worst, rep, rep_gw, rep_i8, by_mode, k1_by_mode):
                     for m, r in k1_by_mode.items()}
         elif kname == "int8_matmul":
             lines.append({**common, **{k: rep_i8[k] for k in timing},
-                          "shape": {k: rep_i8[k] for k in ("shape", "M", "K", "N", "real")}})
+                          "shape": {k: rep_i8[k] for k in ("shape", "M", "K", "N", "real",
+                                                           "tile", "blocks")}})
         else:
             lines.append({**common, **{k: rep_gw[k] for k in timing},
                           "bound_3xtf32_ms": rep_gw["bound_3xtf32_ms"],
@@ -1683,7 +1730,8 @@ def main(argv=None) -> int:
          k3_bf16_hmma_instructions=mma["k3_bf16"], k1_f32_hmma_instructions=mma["k1_f32"],
          k1_bf16_hmma_instructions=mma["k1_bf16"],
          k1_int8_imma_instructions=mma["k1_int8"], k2_int8_sass_sha1=mma["k2_int8_sass"],
-         k1_int8_resources=resource_usage(K1_INT8_KERNEL))
+         k1_int8_resources=resource_usage(K1_INT8_KERNEL),
+         k4_imma_instructions=mma["k4"], k4_resources=resource_usage(K4_KERNEL))
     worst, rep, k2_by_mode = phase_kernels(cfg, device, kernel_batch, reps, plain_reps)
     phase_kernels_f32_train(cfg, device, TRAIN_BATCH, reps, plain_reps, worst, k2_by_mode)
     worst["block_sparse_grad_weight"], rep_gw = phase_kernels_grad_weight(
@@ -1752,6 +1800,7 @@ def main(argv=None) -> int:
     kernels.reset_launch_counts()
     phase_fixed_point(device)
     paths["fixed_point"] = kernels.launch_counts()
+    phase_fixed_point_timing(device, reps)
 
     # ---- main path 4, pricing: simulate on the card (counts reset inside,
     # just before the card's runs)

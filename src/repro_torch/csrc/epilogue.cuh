@@ -21,14 +21,8 @@ namespace hapm {
 
 constexpr float kInt8MaxCode = 127.0f;
 
-// Thread layout of the CUDA-core kernel (K4): 16 x 16 threads per block;
-// thread (ty, tx) owns output rows ty + 16*a (a < RM) and columns tx + 16*b
-// (b < kColsPerThread) of the (bm <= 128, bn <= 128) output tile.
-constexpr int kTx = 16;
-constexpr int kTy = 16;
-constexpr int kThreads = kTx * kTy;
+// The widest output tile (columns) a block-sparse kernel takes.
 constexpr int kMaxBn = 128;
-constexpr int kColsPerThread = kMaxBn / kTx;
 
 // dtype codes of the C interface
 constexpr int kF32 = 0;
@@ -67,27 +61,6 @@ __device__ __forceinline__ void store_out(void* out, size_t o, float v, int out_
     reinterpret_cast<__nv_bfloat16*>(out)[o] = __float2bfloat16_rn(v);
   } else {
     reinterpret_cast<float*>(out)[o] = v;
-  }
-}
-
-// Flush the thread's RM x kColsPerThread accumulators of output tile
-// (i, j) through the epilogue into `out` (row-major, n_total columns).
-template <typename T, typename Acc, int RM>
-__device__ __forceinline__ void flush_tile(const Acc (&acc)[RM][kColsPerThread], const Epilogue& ep,
-                                           void* out, int out_int8, int i, int j, int bm, int bn,
-                                           int n_total, int ty, int tx) {
-#pragma unroll
-  for (int a = 0; a < RM; ++a) {
-    const int r = ty + kTy * a;
-    if (r >= bm) continue;
-#pragma unroll
-    for (int b = 0; b < kColsPerThread; ++b) {
-      const int c = tx + kTx * b;
-      if (c >= bn) continue;
-      const int n = j * bn + c;
-      const float v = flush_epilogue<Acc>(acc[a][b], ep, n);
-      store_out<T>(out, (static_cast<size_t>(i) * bm + r) * n_total + n, v, out_int8);
-    }
   }
 }
 

@@ -36,6 +36,18 @@ __device__ __forceinline__ void mma_k16(int (&c)[4], int a0, int a1, int b0) {
       : "r"(a0), "r"(a1), "r"(b0));
 }
 
+// Four 8x8 matrices of 16-bit elements from shared memory (ldmatrix.x4):
+// lanes 8i .. 8i+7 give the addresses of rows 0-7 of matrix i, and lane l
+// receives in r[i] the word at row l / 4, word l % 4 of matrix i. For int8
+// codes this is the k32 A fragment of 16 rows when lane l points at row l % 16,
+// bytes 16 * (l / 16) .. of the step.
+__device__ __forceinline__ void ldmatrix_x4(int (&r)[4], const void* row) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(row));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(s));
+}
+
 // A 4x4 block of int8 codes, 4 rows (K) of 4 column bytes (N) in r.x .. r.w,
 // transposed into 4 words of 4 K-consecutive codes, one word per column
 // (lowest K in the lowest byte): the B-fragment word of each column.

@@ -131,6 +131,8 @@ def load() -> ctypes.CDLL:
     lib.hapm_block_sparse_grad_weight.restype = I
     lib.hapm_int8_matmul.argtypes = [P] * 4 + [I] * 5 + [P]
     lib.hapm_int8_matmul.restype = I
+    lib.hapm_int8_matmul_tile.argtypes = [I, I, P]
+    lib.hapm_int8_matmul_tile.restype = I
     _lib = lib
     return lib
 

@@ -3,10 +3,10 @@ int8 × int8 → int32 accumulation, per-cout dequant epilogue.
 
 The paper's accelerator multiplies Q3.4 activations by Q2.5 coefficients in
 the DSP slices; here the same integer arithmetic runs in the hand-written
-CUDA kernel ``csrc/int8_matmul.cu``. Accumulation is exact (int32) and the
-flush is one int → f32 conversion and one f32 multiply, so the result is
-bit-identical to ``ref.int8_matmul_ref`` — tests assert equality, not
-closeness.
+CUDA kernel ``csrc/int8_matmul.cu`` on the tensor cores (int8 ``mma.sync``).
+Accumulation is exact (int32) and the flush is one int → f32 conversion and
+one f32 multiply, so the result is bit-identical to ``ref.int8_matmul_ref``
+— tests assert equality, not closeness.
 
 ``scale`` is the dequant row the flush multiplies the int32 accumulator by:
 a per-cout ``(N,)`` vector, or the scalar ``(1,)`` broadcast to every
@@ -23,13 +23,16 @@ Two implementations of the one function live here:
 """
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from . import _build
 from .ref import int_matmul_exact
 
-# limits of the kernel's thread layout (16 x 16 threads, up to 8 rows and 8
-# columns each)
+# the largest caller tiles (bm, bn) the C interface takes: the JAX wrapper's
+# tile-alignment contract (M % bm, N % bn). The kernel picks its own output
+# tile (kernel_tile).
 KERNEL_MAX_BM = 128
 KERNEL_MAX_BN = 128
 
@@ -92,10 +95,11 @@ def int8_matmul(
     bn: int = 128,
 ) -> torch.Tensor:
     """-> (M, N) f32. ``M``, ``K``, ``N`` must be multiples of ``bm``,
-    ``bk``, ``bn``; the kernel's output tile is ``(bm, bn)``, K is walked
-    inside the block. A CUDA ``x_codes`` launches the CUDA kernel on the
-    current stream (no synchronize) or raises; a CPU ``x_codes`` runs
-    :func:`int8_matmul_plain`."""
+    ``bk``, ``bn`` (the JAX wrapper's tile alignment). The kernel does not
+    take them as its tile: it picks its own from M, N and the card's SM
+    count (:func:`kernel_tile`) and walks K inside the block. A CUDA
+    ``x_codes`` launches the CUDA kernel on the current stream (no
+    synchronize) or raises; a CPU ``x_codes`` runs :func:`int8_matmul_plain`."""
     if not x_codes.is_cuda:
         return int8_matmul_plain(x_codes, w_codes, scale, bm=bm, bk=bk, bn=bn)
     global _launches
@@ -118,3 +122,18 @@ def int8_matmul(
     _build.check_launch(err, "int8_matmul")
     _launches += 1
     return out
+
+
+def kernel_tile(M: int, N: int, device=None) -> tuple:
+    """``(rows, columns, blocks)``: the output tile of one block and the
+    block count the kernel launches for an ``(M, N)`` output on ``device``
+    (default: the current CUDA device): the first of 128 x 128, 64 x 128 and
+    64 x 64 that gives a block for every SM, else 64 x 64. Needs the built
+    library and a CUDA device."""
+    lib = _build.load()
+    tile = (ctypes.c_int * 3)()
+    with torch.cuda.device(device if device is not None else torch.cuda.current_device()):
+        err = lib.hapm_int8_matmul_tile(M, N, tile)
+    if err != 0:
+        raise RuntimeError(f"int8_matmul: tile query failed with cudaError {err}")
+    return tuple(tile)

@@ -31,10 +31,13 @@ M = 131072, columns with more live tiles than a stack holds and with
 different stack counts, g zero past 12 lanes or dense, the element-copy
 instances (unaligned operands, a 6-row tile), the bind's lane count
 (``g_lanes``), a malformed stack table or lane count refused, and
-bit-identical results across two launches; for the dense int8 matmul (K4) every
-rows-per-thread instance, narrow column tiles, K tails shorter than its
-32-deep slice, sums past 2^24 and both scale forms, bit-equal to the plain
-version and to ``int8_matmul_ref``. Marked ``gpu``: skipped (with a reason, decided inside a fixture)
+bit-identical results across two launches; for the dense int8 matmul (K4,
+tensor-core products on a block tile it picks itself) every block tile,
+M and N that are no multiple of it (8 to 8192), K from 1 to 2048 with
+tails shorter than a 32- or 16-deep step, 16-, 8-, 4-byte and element
+copies (operands one byte off alignment), -128 and 127 rows and columns with
+sums past 2^24 and both scale forms, bit-equal to the plain version and to
+``int8_matmul_ref`` and across two launches. Marked ``gpu``: skipped (with a reason, decided inside a fixture)
 on a machine without a CUDA device, run on one with
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu_kernels.py
@@ -962,3 +965,85 @@ def test_int8_matmul_wrapper_refusals(dev):
         I8.int8_matmul(x[:100], w, scale)
     with pytest.raises(ValueError, match="scale must be"):
         I8.int8_matmul(x, w, scale[:7])
+
+
+def _kernel_tile_rule(M, N, sms):
+    """The launcher's rule, restated: the first of 128 x 128, 64 x 128 and
+    64 x 64 that gives a block for every SM, else 64 x 64."""
+    for bm, bn in ((128, 128), (64, 128), (64, 64)):
+        blocks = -(-M // bm) * -(-N // bn)
+        if blocks >= sms:
+            break
+    return bm, bn, blocks
+
+
+def _caller_tile(n):
+    """The largest caller tile <= 128 that divides n (8 always does here)."""
+    return max(d for d in (8, 24, 72, 128, n) if d <= 128 and n % d == 0)
+
+
+def _int8_matmul_checked(x, w, scale, per_cout, bm, bk, bn):
+    """Two launches of K4, bit-identical, each counted once, bit-equal to the
+    plain version and to ``int8_matmul_ref``; sums past 2^24 once K >= 1152."""
+    before = I8.launch_count()
+    got = I8.int8_matmul(x, w, scale, bm=bm, bk=bk, bn=bn)
+    again = I8.int8_matmul(x, w, scale, bm=bm, bk=bk, bn=bn)
+    torch.cuda.synchronize()
+    assert I8.launch_count() == before + 2
+    assert torch.equal(got, again)
+    _check(got, I8.int8_matmul_plain(x, w, scale, bm=bm, bk=bk, bn=bn), 0)
+    _check(got, REF.int8_matmul_ref(x, w, scale if per_cout else float(scale)), 0)
+    if x.shape[1] >= 1152:
+        assert int(REF.int_matmul_exact(x, w).abs().max()) > 2 ** 24
+    return got
+
+
+@pytest.mark.parametrize("K", [100, 1152])
+@pytest.mark.parametrize("N", [8, 24, 72, 136, 8192])
+@pytest.mark.parametrize("M", [8, 24, 72, 136, 8192])
+@pytest.mark.parametrize("per_cout", [False, True], ids=["scalar", "per_cout"])
+def test_int8_matmul_imma_ragged_tiles(dev, M, N, K, per_cout):
+    """Outputs whose M and N are no multiple of the kernel's block tile (nor,
+    past 128, of the caller's): rows and columns past M, N zero-filled and
+    not stored; K = 100 takes 4-byte copies, K = 1152 16-byte copies where N
+    allows (N = 8192) and 8-byte ones elsewhere."""
+    x, w, scale = _int8_case(M, K, N, per_cout, M + 3 * N + K, dev)
+    _int8_matmul_checked(x, w, scale, per_cout, _caller_tile(M), K, _caller_tile(N))
+
+
+@pytest.mark.parametrize("K", [1, 4, 16, 24, 32, 33, 48, 100, 1152, 2048])
+@pytest.mark.parametrize("M,N", [(136, 72), (200, 128)])
+@pytest.mark.parametrize("per_cout", [False, True], ids=["scalar", "per_cout"])
+def test_int8_matmul_imma_k_tails(dev, M, N, K, per_cout):
+    """Depths that end inside a 128-deep stage, a 32-deep step or a 16-deep
+    tail (1, 4, 24, 33, 48, 100), whole steps and stages, and sums past
+    2^24; element copies at K = 1 and 33, 4-, 8- and 16-byte copies
+    elsewhere as K and N allow."""
+    x, w, scale = _int8_case(M, K, N, per_cout, 7 * K + N, dev)
+    _int8_matmul_checked(x, w, scale, per_cout, 8, 1, 8)
+
+
+@pytest.mark.parametrize("which", ["x", "w", "both"])
+@pytest.mark.parametrize("M,K,N", [(72, 100, 136), (8192, 640, 128)])
+def test_int8_matmul_imma_one_byte_off(dev, M, K, N, which):
+    """x and w as views one byte past an aligned address: the launcher takes
+    element copies, the same kernel."""
+    x, w, scale = _int8_case(M, K, N, True, M + K + N + len(which), dev)
+    if which in ("x", "both"):
+        x = _offset(x, 1)
+    if which in ("w", "both"):
+        w = _offset(w, 1)
+    _int8_matmul_checked(x, w, scale, True, _caller_tile(M), K, _caller_tile(N))
+
+
+@pytest.mark.parametrize("M,N", [(128, 128), (128, 256), (8192, 128), (4096, 4096),
+                                 (4096, 512), (8, 8)])
+def test_int8_matmul_kernel_tile(dev, M, N):
+    """The tile the kernel reports is the launcher's rule on this card's SM
+    count, not the caller's (bm, bn) = (128, 128); at the im2col row shape
+    it runs at least 128 blocks."""
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    assert I8.kernel_tile(M, N, dev) == _kernel_tile_rule(M, N, sms)
+    if (M, N) == (8192, 128):
+        assert I8.kernel_tile(M, N, dev)[2] >= 128
+

@@ -79,6 +79,11 @@ def test_kernel_sources_share_one_epilogue_header():
         assert '#include "epilogue.cuh"' in text
         assert "torch/extension.h" not in text
     assert "flush_epilogue" in (csrc / "epilogue.cuh").read_text()
+    # K4 multiplies on the tensor cores through the shared int8 fragments
+    # header, with no CUDA-core dot product (__dp4a) left
+    k4 = (csrc / "int8_matmul.cu").read_text()
+    assert '#include "mma_s8.cuh"' in k4 and '#include "epilogue.cuh"' in k4
+    assert "__dp4a" not in k4
     # K2's float instances take their 3xTF32 / bf16 fragments from the
     # shared header that the other float kernels are to include
     conv = (csrc / "implicit_conv.cu").read_text()

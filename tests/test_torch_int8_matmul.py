@@ -77,6 +77,33 @@ def test_int8_matmul_block_sizes_equal_jax(bm, bk, bn):
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
 
+# (M, K, N, bm, bk, bn): the shapes the tensor-core kernel tells apart that
+# JAX's tile rules allow — caller tiles far below its own block tile, M and N
+# no multiple of 64, K = 1, K ending inside a 32-deep step (24, 33, 100) or
+# on a 16-deep tail (48), and sums past 2^24 (K >= 1152 with -128 rows)
+SMALL_TILE_CASES = [(8, 33, 8, 8, 33, 8), (16, 1, 16, 8, 1, 8), (24, 100, 40, 8, 20, 8),
+                    (72, 48, 136, 24, 16, 8), (136, 24, 72, 8, 8, 24),
+                    (64, 2048, 24, 64, 256, 24), (200, 1152, 136, 8, 128, 8)]
+
+
+@pytest.mark.parametrize("M,K,N,bm,bk,bn", SMALL_TILE_CASES, ids=lambda v: str(v))
+@pytest.mark.parametrize("per_cout", [False, True], ids=["scalar", "per_cout"])
+def test_int8_matmul_small_tiles_and_k_tails_equal_jax(M, K, N, bm, bk, bn, per_cout):
+    x, w, rs = _codes(M, K, N, M + K + N + bm)
+    scale = (rs.uniform(1e-3, 1e-1, N).astype(np.float32) if per_cout
+             else np.asarray([1.0 / 512], np.float32))
+    got = TI.int8_matmul(torch.from_numpy(x), torch.from_numpy(w), torch.from_numpy(scale),
+                         bm=bm, bk=bk, bn=bn)
+    want = j_int8_matmul(jnp.asarray(x), jnp.asarray(w), jnp.asarray(scale), bm=bm, bk=bk,
+                         bn=bn, interpret=True)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    np.testing.assert_array_equal(
+        got.numpy(), TR.int8_matmul_ref(torch.from_numpy(x), torch.from_numpy(w),
+                                        torch.from_numpy(scale)).numpy())
+    if K >= 1152:       # sums past 2^24: the int -> f32 conversion rounds
+        assert np.abs(x.astype(np.int64) @ w.astype(np.int64)).max() > 2 ** 24
+
+
 def test_int8_matmul_refusals():
     """What the JAX wrapper refuses, the port refuses too (as exceptions
     with a message, where JAX asserts)."""
