@@ -61,7 +61,19 @@ Run ``python3 chip_smoke.py`` from the repository root. It
    through the implicit conv kernel), holding every field of every report
    to a CPU run of the port and asserting the paper's ordering; the
    quickstart (``repro_torch.launch.quickstart``) runs on the card too,
-7. prints one JSON line per phase, then the card's name and power limit, a
+7. runs the executed-sparsity bench twin
+   (``benchmarks/bench_sparse_cnn_torch.py``, ``--fast``) on the card as a
+   fifth main path (``sparse_cnn_bench``: K1, K2 and K3 at group sparsity
+   0/25/50/75 % on the bench's reduced net, every hard assert of the bench
+   in force, its JSON written to ``build/chip_smoke/``) and prints the 50 % row's wall
+   and device-time ratios beside the bench's three wall-clock floors; then
+   binds the full-width HAPM 0.5 network at batch 128 under four execution
+   contracts (default ``ExecSpec``, ``dense_fallback=2.0``, ``packed=False``
+   and both) for the streamed int8 and the f32 forward, with layers bound,
+   launches, device time, wall p50 and logits against the all-bound packed
+   contract, and ``simulate``'s measured skip under the default contract
+   against every layer bound (``exec_contracts``),
+8. prints one JSON line per phase, then the card's name and power limit, a
    ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device": {...}}``.
 
 Any failing phase raises: the exit code is non-zero and no ``ok`` line is
@@ -78,8 +90,9 @@ often: ``ms`` is the device time per launch with launches queued back to
 back, ``call_ms`` one call on an idle device. ``bound_ms`` counts what the
 convolution needs (real output rows and channels); ``bound_padded_ms`` also
 counts the padded lanes and rows the kernel's output array carries.
-``launches`` sums the four main paths (serving, training, pricing,
-fixed point), each counted from zero just before it is driven;
+``launches`` sums the five main paths (serving, training, pricing,
+fixed point, the executed-sparsity bench), each counted from zero just
+before it is driven;
 ``launches_by_path`` splits them. K2's entry also has ``by_mode``: its int8
 (``streamed``, ``int8``) and f32 instances at the representative geometry,
 streamed at batch 1 in both layouts, each beside its bound and the cuDNN
@@ -170,6 +183,8 @@ PATH_KERNELS = {
               "block_sparse_grad_weight"),
     "price": ("implicit_block_sparse_conv",),
     "fixed_point": ("int8_matmul",),
+    "sparse_cnn": ("block_sparse_matmul", "implicit_block_sparse_conv",
+                   "block_sparse_grad_weight"),
 }
 
 F32_TOL = 1e-4          # f32 kernels vs plain: summation order differs
@@ -187,10 +202,14 @@ TRAIN_LR = 0.05
 
 
 LOG_PATH = None         # --log: every phase line is also appended here
+T_START = time.time()   # every phase line carries its seconds since the start
+# the executed-sparsity bench's --fast JSON
+SPARSE_CNN_JSON = os.path.join(ROOT, "build", "chip_smoke", "BENCH_sparse_cnn_torch_fast.json")
 
 
 def emit(phase: str, **fields) -> None:
-    line = json.dumps({"phase": phase, **fields}, default=str)
+    line = json.dumps({"phase": phase, "elapsed_s": time.time() - T_START, **fields},
+                      default=str)
     print(line, flush=True)
     if LOG_PATH is not None:
         with open(LOG_PATH, "a") as f:
@@ -579,28 +598,16 @@ def profiler_device_ms(fn, device, reps: int):
     its kernels' time). ``None`` where the profiler cannot trace the device
     or records no device time. (``fn`` has already run once,
     unprofiled, when tracing starts: an error of ``fn`` itself is not hidden.)"""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
     fn()
     sync(device)
     try:
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                fn()
-            sync(device)
+        by_key = kernels.profile_device_us(fn, reps, device)
     except RuntimeError as e:       # no device tracing here: an auxiliary
         print(f"chip_smoke: profiler unavailable ({e})", file=sys.stderr)
         return None                 # figure is missing, nothing is wrong
-    total_us = 0.0
-    by_kernel = {k: 0.0 for k in OWN_KERNELS}
-    for e in prof.key_averages():
-        if e.device_type != DeviceType.CUDA:
-            continue
-        t = float(getattr(e, "self_device_time_total", 0.0))
-        total_us += t
-        for kname, names in OWN_KERNELS.items():
-            if any(name in e.key for name in names):
-                by_kernel[kname] += t
+    total_us = sum(by_key.values())
+    by_kernel = {kname: sum(t for key, t in by_key.items() if any(n in key for n in names))
+                 for kname, names in OWN_KERNELS.items()}
     if total_us <= 0:
         return None
     return {"total_ms": total_us / reps / 1e3,
@@ -1320,23 +1327,37 @@ def phase_train_grad_parity(cfg_f32, model, batch, device):
                              f"the leaf's largest gradient: {bad}")
 
 
-def phase_train_default(cfg, model, batch, device):
-    """One SGD step at the default trainable contract,
-    ``ExecSpec(trainable=True, n_cu=12)``: how many of the layers bind."""
+def phase_train_default(cfg, model, batch, device, steps=5):
+    """SGD steps at the default trainable contract,
+    ``ExecSpec(trainable=True, n_cu=12)``: how many of the layers bind, and
+    the step's p50 (host clock + synchronize, after one untimed step) and
+    device time (profiler). The layers that do not bind run the dense rung
+    forward and backward."""
     exec_ = bind_trainable(model, cfg, device, n_cu=N_CU)
     params, state, masks = model[:3]
     step = cnn_training.make_sparse_train_step(cfg, exec_)
+    opt = sgd(momentum=0.9, weight_decay=1e-4)[0](params)
+    one_step = lambda: step(params, state, opt, masks, batch, TRAIN_LR)[3]
     before = kernels.launch_counts()
-    _, _, _, loss = step(params, state, sgd(momentum=0.9, weight_decay=1e-4)[0](params),
-                         masks, batch, TRAIN_LR)
+    loss = one_step()
     sync(device)
     after = kernels.launch_counts()
     if not np.isfinite(float(loss)):
         raise AssertionError("train_default: non-finite loss")
+    lat = []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        one_step()
+        sync(device)
+        lat.append((time.perf_counter() - t0) * 1e3)
+    prof = profiler_device_ms(one_step, device, 3)
     bound = sum(v is not None for v in exec_.table.values())
     emit("train_default", spec=repr(exec_.spec), layers=len(exec_.table),
          layers_bound=bound, layers_dense=len(exec_.table) - bound, loss=float(loss),
-         launches={k: after[k] - before[k] for k in after})
+         launches={k: after[k] - before[k] for k in after}, steps=steps,
+         step_p50_ms=float(np.percentile(lat, 50)),
+         device_ms_per_step=None if prof is None else prof["total_ms"],
+         kernel_ms_per_step=None if prof is None else prof["by_kernel"])
 
 
 def phase_train_cli(device):
@@ -1637,6 +1658,142 @@ def phase_quickstart(device):
                                    "hapm_no_dsb": no_dsb.mean_time_per_image_s * 1e3})
 
 
+# ---------------------------------------------------------------------------
+# main path 5: the executed-sparsity bench twin; the execution contracts
+# ---------------------------------------------------------------------------
+
+def phase_sparse_cnn_bench(card):
+    """``benchmarks/bench_sparse_cnn_torch.py --fast`` on the card, every
+    hard assert of its ``run()`` in force, its JSON written to
+    ``build/chip_smoke/`` (``SPARSE_CNN_JSON``).
+    Prints the 50 % row's wall and device-time ratios and the three
+    wall-clock floors with their verdicts (the gate script, not the bench,
+    enforces those). Returns the path's launches, counted from zero just
+    before the run."""
+    from benchmarks import bench_sparse_cnn_torch as bench
+    out = SPARSE_CNN_JSON
+    os.makedirs(os.path.dirname(out), exist_ok=True)
+    kernels.reset_launch_counts()
+    t0 = time.time()
+    report = bench.run(bench.parse_args(["--fast", "--out", out]))
+    launched = kernels.launch_counts()
+    at50 = next(r for r in report["rows"] if r["target_group_sparsity"] == 0.5)
+    emit("sparse_cnn_bench", card=card, seconds=time.time() - t0,
+         out=os.path.relpath(out, ROOT), config=report["config"], launches=launched,
+         wall_floors=at50["wall_floors"],
+         row50={k: v for k, v in at50.items()
+                if k != "wall_floors" and (k.startswith(("wall_", "device_", "train_step_"))
+                                           or k.endswith(("speedup", "_ratio")))},
+         rows_ratios=[{k: r[k] for k in ("target_group_sparsity",
+                                         "implicit_vs_materializing_wallclock_speedup",
+                                         "device_implicit_vs_materializing_speedup",
+                                         "dsb_kernel_speedup", "device_dsb_kernel_speedup",
+                                         "dsb_dense_act_ratio", "device_dsb_dense_act_ratio",
+                                         "dense_fallback_layers")}
+                      for r in report["rows"]])
+    return launched
+
+
+# the execution contracts of PERF.md §7 (a): the default ExecSpec (packed
+# tiles, dense_fallback 0.999) and the three it is held against
+EXEC_CONTRACTS = {"default": {}, "packed_fallback2": {"dense_fallback": 2.0},
+                  "unpacked": {"packed": False},
+                  "unpacked_fallback2": {"packed": False, "dense_fallback": 2.0}}
+CONTRACT_REF = "packed_fallback2"       # every layer on the kernels, packed tiles
+CONTRACT_TWIN = "unpacked_fallback2"    # the same layers bound, unpacked tiles: its
+                                        # int8 logits must equal the reference's
+
+
+def phase_exec_contracts(cfg, device, card, batch: int = TRAIN_BATCH, reps: int = 5):
+    """The full-width HAPM 0.5 network at ``batch`` under each contract of
+    ``EXEC_CONTRACTS``, for the streamed int8 folded forward and the f32
+    forward: layers bound of the net's convs, K1/K2 launches per forward,
+    device time per forward (profiler), wall p50 (host clock + synchronize)
+    and the max difference of its logits from the all-bound packed
+    contract's, over the batch and on its first frame alone. Then
+    ``simulate(measure_dsb=True)``'s measured skip under the default
+    contract beside the same measurement with every layer bound."""
+    t_start = time.time()
+    params, state, _, specs, st = hapm_model(cfg, 0, N_CU, device)
+    folded = cnn.fold_batchnorm(params, state, cfg)
+    x = torch.from_numpy(np.random.RandomState(5).rand(
+        batch, cfg.image_size, cfg.image_size, 3).astype(np.float32)).to(device)
+    forwards = {
+        "int8_streamed": (folded, dict(quantized=True, folded=True, streamed=True),
+                          lambda e, xx: cnn.apply_folded(folded, xx, cfg, sparse=e)),
+        "f32": (params, {}, lambda e, xx: cnn.apply(params, state, xx, cfg, sparse=e)[0]),
+    }
+    out = {}
+    for mode, (tree, base, fwd) in forwards.items():
+        rows, logits = {}, {}
+        for name, kw in EXEC_CONTRACTS.items():
+            e = cnn.bind_execution(tree, cfg, spec=cnn.ExecSpec(n_cu=N_CU, **base, **kw),
+                                   specs=specs, group_masks=st.group_masks, device=device)
+            fn = lambda ee=e: fwd(ee, x)
+            fn()
+            sync(device)
+            before = kernels.launch_counts()
+            y = fn()
+            sync(device)
+            after = kernels.launch_counts()
+            if tuple(y.shape) != (batch, cfg.num_classes) or not bool(torch.isfinite(y).all()):
+                raise AssertionError(f"exec_contracts: bad {mode} logits under {name}")
+            logits[name] = (y, fwd(e, x[:1]))
+            lat = []
+            for _ in range(reps):
+                t0 = time.perf_counter()
+                fn()
+                sync(device)
+                lat.append((time.perf_counter() - t0) * 1e3)
+            prof = profiler_device_ms(fn, device, 3)
+            bound = sum(v is not None for v in e.table.values())
+            rows[name] = {
+                "spec": repr(e.spec), "layers": len(e.table), "layers_bound": bound,
+                "launches_per_forward": {k: after[k] - before[k]
+                                         for k in ("block_sparse_matmul",
+                                                   "implicit_block_sparse_conv")},
+                "device_ms": None if prof is None else prof["total_ms"],
+                "device_own_kernels_ms": None if prof is None else prof["kernels_ms"],
+                "wall_p50_ms": float(np.percentile(lat, 50))}
+        ref, ref1 = logits[CONTRACT_REF]
+        for name, (y, y1) in logits.items():
+            rows[name][f"max_abs_logit_diff_vs_{CONTRACT_REF}"] = float((y - ref).abs().max())
+            rows[name]["first_frame_max_abs_logit_diff"] = float((y1 - ref1).abs().max())
+        out[mode] = rows
+        # int8: the two all-bound layouts run the same codes through the same
+        # requantize, so their logits are equal; the default contract's
+        # difference is reported only (its fallback layers convolve the f32
+        # folded weights, by design). f32: every contract computes the same
+        # function, the sums differ only in order.
+        held = list(rows) if mode == "f32" else [CONTRACT_TWIN]
+        tol = F32_TOL if mode == "f32" else 0.0
+        bad = {name: rows[name][f"max_abs_logit_diff_vs_{CONTRACT_REF}"] for name in held
+               if not rows[name][f"max_abs_logit_diff_vs_{CONTRACT_REF}"] <= tol}
+        if bad:
+            emit("exec_contracts", card=card, contracts=out)
+            raise AssertionError(f"exec_contracts: {mode} logits differ from "
+                                 f"{CONTRACT_REF}'s by more than {tol}: {bad}")
+
+    ds = SyntheticCifar(num_train=8, num_test=64, seed=0, image_size=cfg.image_size)
+    board = BOARDS["zedboard_100mhz_72dsp"]
+    rep = simulate(params, state, cfg, board, ds.test_x, ds.test_y, measure_dsb=True,
+                   device=device)
+    # simulate's own skip measurement (a streamed activation_dsb bind of the
+    # folded tree over its first 4 frames), with every layer bound
+    all_bound = cnn.bind_execution(
+        folded, cfg, spec=cnn.ExecSpec(folded=True, quantized=True, streamed=True,
+                                       implicit=True, activation_dsb=True, n_cu=N_CU,
+                                       dense_fallback=2.0), device=device)
+    m = all_bound.measure_dsb_skip(folded, torch.from_numpy(ds.test_x[:4]).to(device), cfg)
+    emit("exec_contracts", card=card, seconds=time.time() - t_start, batch=batch, reps=reps,
+         reference=CONTRACT_REF,
+         contracts=out, simulate_dsb_skip_measured={
+             "default": rep.dsb_skip_frac_measured,
+             "dense_fallback_2": m["dsb_skip_frac"],
+             "dense_fallback_2_steps": [m["dsb_skipped_steps"], m["dsb_live_steps"]],
+             "predicted": rep.dsb_skip_frac_predicted})
+
+
 def kernels_line(paths, worst, rep, rep_gw, rep_i8, by_mode, k1_by_mode):
     """The ``kernels`` list of the last-but-one line: every ported kernel at
     its representative shape, with its launches on each main path
@@ -1806,6 +1963,11 @@ def main(argv=None) -> int:
     # just before the card's runs)
     paths["price"] = phase_price(cfg, device, card)
     phase_quickstart(device)
+
+    # ---- main path 5, the executed-sparsity bench twin (counts reset inside,
+    # just before its run); then the execution contracts at full width
+    paths["sparse_cnn"] = phase_sparse_cnn_bench(card)
+    phase_exec_contracts(cfg, device, card)
 
     for path, counts in paths.items():
         for kname in PATH_KERNELS[path]:

@@ -173,24 +173,50 @@ def _maybe_qa(x, cfg: ResNetConfig):
     return Q.quantize(x, Q.Q3_4) if cfg.quantized else x
 
 
+class _DenseConv(torch.autograd.Function):
+    """``F.conv2d`` (NCHW/OIHW, no padding): the forward with cuDNN switched
+    off (exact sums, see :func:`_conv`), the backward on cuDNN with TF32
+    switched off. The backward of a plain ``F.conv2d`` call picks its
+    backend again when autograd runs it, outside any ``cudnn.flags`` block
+    of the forward, so it ran on cuDNN with TF32 (``allow_tf32`` defaults to
+    True): on an H100 the gradients of a 16x16 net's dense training step at
+    batch 4 read 4.1e-4 from float64 on the conv0 weight that way."""
+
+    @staticmethod
+    def forward(ctx, xn, wn, stride):
+        ctx.save_for_backward(xn, wn)
+        ctx.stride = stride
+        with torch.backends.cudnn.flags(enabled=False):
+            return F.conv2d(xn, wn, stride=stride)
+
+    @staticmethod
+    def backward(ctx, g):
+        xn, wn = ctx.saved_tensors
+        with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+            gx, gw, _ = torch.ops.aten.convolution_backward(
+                g, xn, wn, None, [ctx.stride] * 2, [0, 0], [1, 1], False, [0, 0], 1,
+                [ctx.needs_input_grad[0], ctx.needs_input_grad[1], False])
+        return gx, gw, None
+
+
 def _conv(x, w, stride):
     """Dense NHWC/HWIO SAME convolution through the library — the dense
     rung and the dense-fallback layers. The input is padded explicitly
     (XLA's SAME split; ``conv2d(padding=...)`` is symmetric and differs at
-    stride 2). On CUDA the call runs with cuDNN switched off: PyTorch's own
-    convolution is an im2col GEMM in full f32 (no TF32, which would flip
-    requantized codes, and no Winograd/FFT transform), so on fake-quant
-    operands its sums are exact, as the executed-int8 kernels' are. The
-    operands are copied to contiguous NCHW/OIHW first: the backward of
-    oneDNN's CPU convolution on the permuted views corrupts the heap
-    (torch 2.13.0+cpu, seen on a ResNet with a stride-2 stage)."""
+    stride 2). On CUDA the forward runs with cuDNN switched off
+    (:class:`_DenseConv`): PyTorch's own convolution is an im2col GEMM in
+    full f32 (no TF32, which would flip requantized codes, and no
+    Winograd/FFT transform), so on fake-quant operands its sums are exact,
+    as the executed-int8 kernels' are; the backward runs on cuDNN in full
+    f32 (TF32 off). The operands are copied to contiguous NCHW/OIHW first:
+    the backward of oneDNN's CPU convolution on the permuted views corrupts
+    the heap (torch 2.13.0+cpu, seen on a ResNet with a stride-2 stage)."""
     kx, ky = int(w.shape[0]), int(w.shape[1])
     xp = pad_nhwc(x, same_pads(x.shape[1], kx, stride),
                   same_pads(x.shape[2], ky, stride))
     xn, wn = xp.permute(0, 3, 1, 2).contiguous(), w.permute(3, 2, 0, 1).contiguous()
     if x.is_cuda:
-        with torch.backends.cudnn.flags(enabled=False):
-            y = F.conv2d(xn, wn, stride=stride)
+        y = _DenseConv.apply(xn, wn, stride)
     else:
         y = F.conv2d(xn, wn, stride=stride)
     return y.permute(0, 2, 3, 1)

@@ -300,3 +300,24 @@ def test_entry_points_default_to_the_gpu_and_raise_without_one(model):
     with pytest.raises(RuntimeError, match="CUDA device and none is available"):
         TC.params_from_numpy({"w": np.zeros(3, np.float32)})
     assert TC.resolve_device("cpu") == torch.device("cpu")
+
+
+@pytest.mark.parametrize("stride", [1, 2])
+def test_dense_conv_forward_and_backward_are_the_library_conv(stride):
+    """The dense rung's CUDA convolution (``_DenseConv``: cuDNN off in the
+    forward, on in full f32 in the backward) computes what ``F.conv2d`` and
+    its autograd compute; on the CPU, bit for bit."""
+    import torch.nn.functional as F
+    rs = np.random.RandomState(stride)
+    x = torch.from_numpy(rs.randn(2, 5, 9, 9).astype(np.float32)).requires_grad_()
+    w = torch.from_numpy(rs.randn(7, 5, 3, 3).astype(np.float32)).requires_grad_()
+    y = TC._DenseConv.apply(x, w, stride)
+    y_ref = F.conv2d(x, w, stride=stride)
+    g = torch.from_numpy(rs.randn(*y.shape).astype(np.float32))
+    want = torch.autograd.grad(y_ref, (x, w), g)
+    for got, ref in zip(torch.autograd.grad(y, (x, w), g), want):
+        assert torch.equal(got, ref)
+    assert torch.equal(y, y_ref)
+    # only the weight wants a gradient (the first layer's input)
+    gw, = torch.autograd.grad(TC._DenseConv.apply(x.detach(), w, stride), (w,), g)
+    assert torch.equal(gw, want[1])

@@ -1047,3 +1047,33 @@ def test_int8_matmul_kernel_tile(dev, M, N):
     if (M, N) == (8192, 128):
         assert I8.kernel_tile(M, N, dev)[2] >= 128
 
+
+
+def test_dense_training_gradients_are_full_f32(dev):
+    """The dense rung's backward runs in full f32 (TF32 off): the dense
+    training step of the executed-sparsity bench's net (HAPM 0.5, batch 4)
+    stays within 1e-5 of float64 (the backward picked by autograd, on cuDNN
+    with TF32, read 4.1e-4 on the conv0 weight)."""
+    import torch.nn.functional as F
+    from benchmarks import bench_sparse_cnn_torch as BENCH
+    from repro_torch.core import apply_masks
+    from repro_torch.core.masks import tree_flatten_with_path, tree_map
+    from repro_torch.models import cnn
+    from repro_torch.train.loop import value_and_grad
+
+    params, state, specs = BENCH.make_model(dev)
+    pruned, gm = BENCH.hapm_prune(params, specs, 0.5)
+    masks = BENCH.element_masks(specs, gm, dev)
+    x = BENCH.frames(4, dev)
+    y = torch.from_numpy(np.random.RandomState(2).randint(0, 10, 4)).to(dev)
+
+    def grads(p, s, xx):
+        def loss(q):
+            logits, ns = cnn.apply(apply_masks(q, masks), s, xx, BENCH.CFG, train=True)
+            return -torch.mean(F.log_softmax(logits, -1).gather(1, y[:, None])), ns
+        return {k: v.double() for k, v in tree_flatten_with_path(value_and_grad(loss, p)[1])}
+
+    to64 = lambda t: t.double()
+    g64 = grads(tree_map(to64, pruned), tree_map(to64, state), x.double())
+    g = grads(pruned, state, x)
+    assert max(float((g[k] - g64[k]).abs().max()) for k in g64) <= 1e-5

@@ -1,6 +1,7 @@
-"""The port stands alone: no module under ``src/repro_torch`` and not
-``chip_smoke.py`` imports ``jax`` or anything of the JAX package ``repro``,
-and nothing imports ``triton`` or builds a kernel at import time."""
+"""The port stands alone: no module under ``src/repro_torch``, no bench twin
+``benchmarks/*_torch.py`` and not ``chip_smoke.py`` imports ``jax`` or
+anything of the JAX package ``repro``, and nothing imports ``triton`` or
+builds a kernel at import time."""
 import ast
 import os
 import pathlib
@@ -9,7 +10,9 @@ import sys
 import pytest
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
-FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
+TWIN_FILES = sorted((ROOT / "benchmarks").glob("*_torch.py"))
+FILES = PORT_FILES + TWIN_FILES + [ROOT / "chip_smoke.py"]
 FORBIDDEN = {"jax", "jaxlib", "repro", "triton", "flax", "optax"}
 
 
@@ -24,7 +27,7 @@ def _imported_roots(path: pathlib.Path):
 
 
 def test_port_has_its_modules():
-    names = {str(p.relative_to(ROOT / "src" / "repro_torch")) for p in FILES[:-1]}
+    names = {str(p.relative_to(ROOT / "src" / "repro_torch")) for p in PORT_FILES}
     for want in ("core/quant.py", "core/groups.py", "core/masks.py", "core/hapm.py",
                  "sparse/block_mask.py", "sparse/conv_plan.py",
                  "kernels/conv_lowering.py", "kernels/ref.py",
@@ -38,6 +41,8 @@ def test_port_has_its_modules():
                  "accel/simulator.py", "kernels/int8_matmul.py",
                  "launch/quickstart.py"):
         assert want in names, want
+    twins = {p.name for p in TWIN_FILES}
+    assert {"bench_sparse_cnn_torch.py", "check_sparse_regression_torch.py"} <= twins
 
 
 @pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(ROOT)))
@@ -47,15 +52,17 @@ def test_no_forbidden_imports(path):
 
 
 def test_importing_the_port_needs_no_compiler():
-    """Importing every module, in a fresh interpreter, builds nothing, loads
-    no CUDA library and imports neither ``triton`` nor ``jax``."""
+    """Importing every module and bench twin, in a fresh interpreter, builds
+    nothing, loads no CUDA library and imports neither ``triton`` nor
+    ``jax``."""
     import subprocess
 
     pytest.importorskip("torch")
     mods = []
-    for p in FILES[:-1]:
+    for p in PORT_FILES:
         rel = p.relative_to(ROOT / "src").with_suffix("")
         mods.append(".".join(rel.parts).removesuffix(".__init__"))
+    mods += [f"benchmarks.{p.stem}" for p in TWIN_FILES]
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
@@ -65,7 +72,7 @@ def test_importing_the_port_needs_no_compiler():
         "assert not bad, bad\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     done = subprocess.run([sys.executable, "-c", code], env=env, text=True,
-                          capture_output=True, timeout=300)
+                          capture_output=True, timeout=300, cwd=str(ROOT))
     assert done.returncode == 0, done.stderr
 
 
