@@ -36,7 +36,9 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import math
 import os
+import statistics
 import subprocess
 import sys
 import time
@@ -62,13 +64,22 @@ SWEEP = (0.0, 0.25, 0.5, 0.75)
 N_CU = 12                                   # the paper's CU count
 CFG = cnn.ResNetConfig(stages=(1, 1, 2), widths=(16, 32, 64), image_size=16)
 REPS, TRAIN_REPS = 5, 3                     # blocking reps per wall (min of)
-DEVICE_REPS = 3                             # profiled calls per device time
+# device time per call: the median over DEVICE_SESSIONS profiler sessions, each
+# opened on an idle device and holding enough back-to-back calls (at least
+# DEVICE_REPS, at most DEVICE_MAX_CALLS) for about DEVICE_WINDOW_MS of device work
+DEVICE_REPS, DEVICE_SESSIONS, DEVICE_WINDOW_MS, DEVICE_MAX_CALLS = 3, 3, 1.0, 1000
+# a session in which the profiler records no device event at all (seen on an
+# H100 between two good sessions of the same call) is opened again, at most
+# this many times per reading; ``Timer.empty_sessions`` counts them
+DEVICE_EMPTY_RETRIES = 3
 DSB_LAYER = ("s2b0", "conv1", "w")          # 32 -> 64, stride 2, 8x8 in
 TIMED = ("wall_*_ms / train_step_*_ms: min over {reps} (training {train_reps}) "
          "blocking calls after one warmup; on CUDA, CUDA events around each call "
          "with the stream idle before it and a synchronize at each stop, so the "
          "host's Python glue is included. device_*_ms: torch.profiler's "
-         "device-side kernel and copy time of {device_reps} calls, summed, per call.")
+         "device-side kernel and copy time per call, the median of {device_sessions} "
+         "sessions, each opened on an idle device over back-to-back calls (at least "
+         "{device_reps}) that hold about {device_window_ms} ms of device work.")
 
 
 def _sync(device: torch.device) -> None:
@@ -76,7 +87,7 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
-@dataclasses.dataclass(frozen=True)
+@dataclasses.dataclass
 class Timer:
     """The reference's statistic on a device: min over blocking reps after a
     warmup (a single scheduler spike inflates a mean and flips the
@@ -85,13 +96,14 @@ class Timer:
 
     device: torch.device
     reps: int = REPS
+    empty_sessions: int = 0         # profiler sessions that recorded nothing
 
-    def wall(self, fn, *a, reps=None):
-        """(last output, min seconds of one blocking ``fn(*a)``)."""
-        fn(*a)                                       # warmup
-        _sync(self.device)
-        best, out = float("inf"), None
+    def times(self, fn, *a, reps=None):
+        """(last output, [seconds of each of ``reps`` blocking ``fn(*a)``
+        calls]), each started on an idle device; no warmup."""
+        out, dts = None, []
         for _ in range(reps or self.reps):
+            _sync(self.device)
             if self.device.type == "cuda":
                 start = torch.cuda.Event(enable_timing=True)
                 stop = torch.cuda.Event(enable_timing=True)
@@ -99,24 +111,50 @@ class Timer:
                 out = fn(*a)
                 stop.record()
                 torch.cuda.synchronize(self.device)
-                dt = start.elapsed_time(stop) / 1e3
+                dts.append(start.elapsed_time(stop) / 1e3)
             else:
                 t0 = time.perf_counter()
                 out = fn(*a)
-                dt = time.perf_counter() - t0
-            best = min(best, dt)
-        return out, best
+                dts.append(time.perf_counter() - t0)
+        return out, dts
 
-    def device_ms(self, fn, *a, reps=None):
+    def wall(self, fn, *a, reps=None):
+        """(last output, min seconds of one blocking ``fn(*a)``)."""
+        fn(*a)                                       # warmup
+        out, dts = self.times(fn, *a, reps=reps)
+        return out, min(dts)
+
+    def device_ms(self, fn, *a):
         """Device time of one ``fn(*a)`` in ms: every kernel and copy that
-        ``reps`` calls put on the card, summed from the profiler's
-        device-side events, per call. None off CUDA, or where the profiler
-        records no device time."""
+        the calls put on the card, summed from the profiler's device-side
+        events, per call. A first session of ``DEVICE_REPS`` calls sizes the
+        window: each of the ``DEVICE_SESSIONS`` sessions that follow holds
+        enough back-to-back calls for about ``DEVICE_WINDOW_MS`` of device
+        work, and opens on an idle device; their median. (A single
+        three-call session read None once and ~3x its neighbours twice for a
+        0.01-0.03 ms call.) A session that records no device time is opened
+        again, ``DEVICE_EMPTY_RETRIES`` times at most in one reading, and
+        counted in ``empty_sessions``; past that it raises. None off CUDA."""
         if self.device.type != "cuda":
             return None
-        reps = reps or DEVICE_REPS
-        total_us = sum(profile_device_us(lambda: fn(*a), reps, self.device).values())
-        return total_us / reps / 1e3 if total_us > 0 else None
+        empty = 0
+
+        def session(calls: int) -> float:
+            nonlocal empty
+            while True:
+                _sync(self.device)
+                total_us = sum(profile_device_us(lambda: fn(*a), calls, self.device).values())
+                if total_us > 0:
+                    return total_us / calls / 1e3
+                empty += 1
+                self.empty_sessions += 1
+                if empty > DEVICE_EMPTY_RETRIES:
+                    raise RuntimeError(f"the profiler recorded no device time in {empty} "
+                                       f"sessions of {calls} calls on {self.device}")
+
+        per_call = session(DEVICE_REPS)
+        calls = min(DEVICE_MAX_CALLS, max(DEVICE_REPS, math.ceil(DEVICE_WINDOW_MS / per_call)))
+        return statistics.median(session(calls) for _ in range(DEVICE_SESSIONS))
 
     def measure(self, fn, *a, reps=None):
         """(last output, min wall seconds, device ms)."""
@@ -606,8 +644,12 @@ def run(args=None) -> dict:
                       "stages": CFG.stages, "widths": CFG.widths,
                       "image_size": CFG.image_size, **environment(device),
                       "reps": REPS, "train_reps": TRAIN_REPS, "device_reps": DEVICE_REPS,
+                      "device_sessions": DEVICE_SESSIONS, "device_window_ms": DEVICE_WINDOW_MS,
+                      "device_empty_sessions": timer.empty_sessions,
                       "timed": TIMED.format(reps=REPS, train_reps=TRAIN_REPS,
-                                            device_reps=DEVICE_REPS)},
+                                            device_reps=DEVICE_REPS,
+                                            device_sessions=DEVICE_SESSIONS,
+                                            device_window_ms=DEVICE_WINDOW_MS)},
            "rows": rows}
     os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
     with open(args.out, "w") as f:

@@ -23,13 +23,22 @@ through the kernels. Its gradients are held to 1e-4 of the dense f32 step
 (``grad_all_bound_max_err_vs_f64``); pruned gradients
 (``pruned_group_grad_all_bound_max``) must be exactly zero.
 
-``--require-serving`` and ``--require-resilience`` gate the serving bench's
-JSON; the port has no twin of that bench yet, so they are left out here.
+``--require-serving`` and ``--require-resilience`` gate the serving bench
+twin's JSON (``benchmarks.bench_serving_cnn_torch``; ``--serving``, default
+``BENCH_serving_cnn_torch.json``) with the reference's absolute contracts:
+steady-state hit rate exactly 1.0 and bind amortization ≥ 5×, and, on the
+``chaos`` row, zero wrong answers, at least three fault kinds, every injected
+bind failure retried or downgraded, served + shed == submitted, shed rate ≤
+0.5 and a warm restart that reproduces the snapshot. ``--require-serving``
+also holds the streamed row's amortization to the same 5×, a floor the
+reference bench asserts inside its run and the twin only records (both
+amortizations are ratios of two host walls).
 
-The constants and the streaming, DSB and training checks are a copy of the
-reference gate's, by choice: the port and its twins import nothing of the
-JAX side, so neither depends on the other's files.
-``tests/test_torch_bench_sparse_cnn.py`` holds the copy equal to the
+The constants and the streaming, DSB, training, serving and resilience
+checks are a copy of the reference gate's, by choice: the port and its twins
+import nothing of the JAX side, so neither depends on the other's files.
+``tests/test_torch_bench_sparse_cnn.py`` and
+``tests/test_torch_bench_serving_cnn.py`` hold the copy equal to the
 reference (the same constants; the same verdicts and lines on the same row).
 """
 from __future__ import annotations
@@ -41,6 +50,7 @@ import sys
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BENCH_JSON = os.path.join(ROOT, "BENCH_sparse_cnn_torch.json")
+SERVING_JSON = os.path.join(ROOT, "BENCH_serving_cnn_torch.json")
 BASELINE_JSON = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                              "sparse_cnn_baseline_torch.json")
 TARGET = 0.5
@@ -73,6 +83,9 @@ ERR_SLACK = 1.5
 WALL_FLOORS = {"implicit_vs_materializing_wallclock_speedup": 1.3,
                "dsb_kernel_speedup": 1.2,
                "dsb_dense_act_ratio": 0.95}
+# serving gates: absolute contracts, no baseline file needed
+SERVING_HIT_RATE_MIN = 1.0          # every steady-state request a cache hit
+SERVING_AMORTIZATION_MIN = 5.0      # cold bind+forward p50 / steady p50 at batch 1
 # streaming gates: absolute contracts, no baseline file needed
 STREAMED_HBM_RATIO_MAX = 0.28       # acceptance ceiling (contract prices 0.25)
 STREAMED_WIRE_ERR_MAX = 0.0         # in-epilogue requantize: bitwise or wrong
@@ -81,6 +94,9 @@ DSB_SKIP_FRAC_MIN = 0.3             # ReLU-sparse input: skip >= 30 % of passes
 DSB_SPEEDUP_MIN = 1.2               # skip vs non-skip kernel wall (same machine)
 DSB_DENSE_ACT_RATIO_MIN = 0.95      # dense activations must not pay for the skip
 DSB_EXACT_ERR_MAX = 0.0             # skip-on == skip-off: bitwise or wrong
+# resilience gates: absolute contracts over the chaos row, baseline-free
+CHAOS_MIN_FAULT_KINDS = 3           # the scenario must actually inject chaos
+CHAOS_SHED_RATE_MAX = 0.5           # bounded shedding, never wholesale refusal
 # training gates: absolute contracts (baseline-free) + one timing ratio
 TRAIN_GRAD_PARITY_MAX = 1e-4        # dense-vs-sparse gradient max |err|
 TRAIN_PRUNED_GRAD_MAX = 0.0         # no-resurrection: exactly zero
@@ -108,6 +124,87 @@ def check_wall_floors(row: dict) -> list:
               f"(floor {floor}) {'REGRESSED' if bad else 'ok'}")
         if bad:
             failures.append(f"{key}_floor")
+    return failures
+
+
+def _serving_report(path: str):
+    """The serving twin's JSON at ``path``, or None where there is none."""
+    if not os.path.exists(path):
+        return None
+    with open(path) as f:
+        return json.load(f)
+
+
+def check_serving(path: str = SERVING_JSON) -> list:
+    """Gate the serving twin's absolute contracts; returns failures. The
+    reference's two lines, then the streamed row's amortization floor."""
+    rep = _serving_report(path)
+    if rep is None:
+        return [f"missing {path} (run benchmarks.bench_serving_cnn_torch)"]
+    failures = []
+    for key, cur, floor in (
+            ("steady_hit_rate", rep.get("steady_hit_rate"), SERVING_HIT_RATE_MIN),
+            ("bind_amortization_ratio", rep.get("bind_amortization_ratio"),
+             SERVING_AMORTIZATION_MIN),
+            ("streamed.bind_amortization_ratio",
+             (rep.get("streamed") or {}).get("bind_amortization_ratio"),
+             SERVING_AMORTIZATION_MIN)):
+        bad = cur is None or cur < floor - TOL
+        print(f"  {key:>44}: {cur if cur is not None else 'MISSING'} "
+              f"(floor {floor}) {'REGRESSED' if bad else 'ok'}")
+        if bad:
+            failures.append(key)
+    return failures
+
+
+def check_resilience(path: str = SERVING_JSON) -> list:
+    """Gate the chaos row's absolute contracts; returns failures: zero wrong
+    answers (each served output bit-exact against a clean server pinned to
+    the ladder rung it ran under), every injected bind failure absorbed by a
+    retry or a recorded downgrade, every submitted request served or counted
+    as shed, at least CHAOS_MIN_FAULT_KINDS fault kinds injected, a bounded
+    shed rate and a warm restart that reproduces the snapshot."""
+    rep = _serving_report(path)
+    if rep is None:
+        return [f"missing {path} (run benchmarks.bench_serving_cnn_torch)"]
+    chaos = rep.get("chaos")
+    if not chaos:
+        print("  chaos row: MISSING (run benchmarks.bench_serving_cnn_torch "
+              "--chaos) REGRESSED")
+        return ["chaos_row_missing"]
+    failures = []
+    res = chaos.get("resilience", {})
+    trace = chaos.get("trace", {})
+    injected = chaos.get("faults_injected", {})
+    checks = [
+        ("chaos_wrong_answers", chaos.get("wrong_answers"), 0,
+         "== (bit-exact per rung or it is a wrong answer)"),
+        ("chaos_fault_kinds", len(chaos.get("fault_kinds", [])),
+         CHAOS_MIN_FAULT_KINDS, ">="),
+        ("chaos_bind_faults_resolved",
+         injected.get("bind_fail", 0)
+         - res.get("bind_retries", 0) - res.get("bind_failures", 0), 0,
+         "== (each injected bind failure retried or downgraded)"),
+        ("chaos_requests_accounted",
+         trace.get("submitted", -1)
+         - trace.get("requests", 0) - trace.get("shed", 0), 0,
+         "== (served + shed == submitted: nothing hangs)"),
+        ("chaos_shed_rate", chaos.get("shed_rate"), CHAOS_SHED_RATE_MAX, "<="),
+        ("chaos_snapshot_warm_restart", chaos.get("snapshot_warm_restart"), True, "=="),
+    ]
+    for key, cur, bound, op in checks:
+        if cur is None:
+            bad = True
+        elif op.startswith("=="):
+            bad = cur != bound
+        elif op == ">=":
+            bad = cur < bound
+        else:
+            bad = cur > bound + TOL
+        print(f"  {key:>44}: {cur if cur is not None else 'MISSING'} "
+              f"({op} {bound}) {'REGRESSED' if bad else 'ok'}")
+        if bad:
+            failures.append(key)
     return failures
 
 
@@ -191,6 +288,11 @@ def main(argv=None) -> int:
                          "benchmarks/sparse_cnn_baseline_torch.json)")
     ap.add_argument("--update", action="store_true",
                     help="rewrite the baseline from the current bench output")
+    ap.add_argument("--serving", default=SERVING_JSON,
+                    help="the serving twin's JSON (default: BENCH_serving_cnn_torch.json)")
+    ap.add_argument("--require-serving", action="store_true",
+                    help="also gate the serving twin's JSON (hit rate, bind "
+                         "amortization, streamed bind amortization)")
     ap.add_argument("--require-streaming", action="store_true",
                     help="also hard-floor the bench's int8-streaming "
                          "columns (HBM ratio <= 0.28, wire parity == 0)")
@@ -201,6 +303,9 @@ def main(argv=None) -> int:
     ap.add_argument("--require-training", action="store_true",
                     help="also gate the bench's training columns (grad "
                          "parity, pruned-group grads, train-step ratio)")
+    ap.add_argument("--require-resilience", action="store_true",
+                    help="also gate the serving twin's chaos row (zero wrong "
+                         "answers, bind faults resolved, bounded shed rate)")
     args = ap.parse_args(argv)
 
     with open(args.bench) as f:
@@ -249,12 +354,16 @@ def main(argv=None) -> int:
         if bad:
             failures.append(key)
     failures += check_wall_floors(row)
+    if args.require_serving:
+        failures += check_serving(args.serving)
     if args.require_streaming:
         failures += check_streaming(row)
     if args.require_dsb:
         failures += check_dsb(row)
     if args.require_training:
         failures += check_training(row, baseline)
+    if args.require_resilience:
+        failures += check_resilience(args.serving)
     if failures:
         print(f"\nexecuted-sparsity regression at {TARGET:.0%} group "
               f"sparsity: {failures}", file=sys.stderr)

@@ -73,7 +73,17 @@ Run ``python3 chip_smoke.py`` from the repository root. It
    launches, device time, wall p50 and logits against the all-bound packed
    contract, and ``simulate``'s measured skip under the default contract
    against every layer bound (``exec_contracts``),
-8. prints one JSON line per phase, then the card's name and power limit, a
+8. runs the serving bench twin (``benchmarks/bench_serving_cnn_torch.py``,
+   ``--smoke``) on the card as a sixth main path (``serving_cnn_bench``: K2
+   through the streamed servers, every hard assert of the bench in force,
+   including bit-equal logits at every bucket and zero wrong answers under
+   its chaos scenario, a server with ``policy`` and ``faults`` set; its
+   chaos counters must equal the reference's committed row), printing each
+   bucket's p50, device time and busy share and both amortization verdicts;
+   then serves the full-width network through ``CnnServer`` with a fixed
+   ``ExecSpec(bm=64)`` in both tile layouts against a CPU server
+   (``serve_bm64_*``),
+9. prints one JSON line per phase, then the card's name and power limit, a
    ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device": {...}}``.
 
 Any failing phase raises: the exit code is non-zero and no ``ok`` line is
@@ -90,9 +100,9 @@ often: ``ms`` is the device time per launch with launches queued back to
 back, ``call_ms`` one call on an idle device. ``bound_ms`` counts what the
 convolution needs (real output rows and channels); ``bound_padded_ms`` also
 counts the padded lanes and rows the kernel's output array carries.
-``launches`` sums the five main paths (serving, training, pricing,
-fixed point, the executed-sparsity bench), each counted from zero just
-before it is driven;
+``launches`` sums the six main paths (serving, training, pricing,
+fixed point, the executed-sparsity bench, the serving bench), each counted
+from zero just before it is driven;
 ``launches_by_path`` splits them. K2's entry also has ``by_mode``: its int8
 (``streamed``, ``int8``) and f32 instances at the representative geometry,
 streamed at batch 1 in both layouts, each beside its bound and the cuDNN
@@ -185,6 +195,7 @@ PATH_KERNELS = {
     "fixed_point": ("int8_matmul",),
     "sparse_cnn": ("block_sparse_matmul", "implicit_block_sparse_conv",
                    "block_sparse_grad_weight"),
+    "serving_cnn": ("implicit_block_sparse_conv",),
 }
 
 F32_TOL = 1e-4          # f32 kernels vs plain: summation order differs
@@ -205,6 +216,15 @@ LOG_PATH = None         # --log: every phase line is also appended here
 T_START = time.time()   # every phase line carries its seconds since the start
 # the executed-sparsity bench's --fast JSON
 SPARSE_CNN_JSON = os.path.join(ROOT, "build", "chip_smoke", "BENCH_sparse_cnn_torch_fast.json")
+# the serving bench's --smoke JSON, and the reference's committed one, whose
+# chaos row the card's must reproduce: its counters and trace live on a
+# virtual clock and do not depend on the weights
+SERVING_CNN_JSON = os.path.join(ROOT, "build", "chip_smoke", "BENCH_serving_cnn_torch_fast.json")
+SERVING_REF_JSON = os.path.join(ROOT, "BENCH_serving_cnn.json")
+CHAOS_COUNTERS = ("fault_kinds", "faults_injected", "resilience", "shed_rate", "degrade_log",
+                  "answers_checked", "answers_at_recorded_rung", "wrong_answers",
+                  "snapshot_warm_restart")
+FIXED_BM = 64           # a fixed M block (<= 128) bound through CnnServer
 
 
 def emit(phase: str, **fields) -> None:
@@ -1694,6 +1714,69 @@ def phase_sparse_cnn_bench(card):
     return launched
 
 
+# ---------------------------------------------------------------------------
+# main path 6: the serving bench twin; a fixed-bm server at full width
+# ---------------------------------------------------------------------------
+
+def phase_serving_cnn_bench(card):
+    """``benchmarks/bench_serving_cnn_torch.py --smoke`` on the card, every
+    hard assert of its ``run()`` in force (one bind per server, every steady
+    request a hit, bit-equal logits at every bucket, the off-bucket batch,
+    the streamed row, zero wrong answers under chaos), its JSON written to
+    ``build/chip_smoke/`` (``SERVING_CNN_JSON``). The chaos row's counters
+    and virtual-clock trace must equal the reference's committed row.
+    Prints each bucket's p50, device time and busy share, both amortization
+    verdicts (the gate script enforces them) and the chaos counters.
+    Returns the path's launches, counted from zero just before the run."""
+    from benchmarks import bench_serving_cnn_torch as bench
+    kernels.reset_launch_counts()
+    t0 = time.time()
+    report = bench.run(bench.parse_args(["--smoke", "--out", SERVING_CNN_JSON]))
+    launched = kernels.launch_counts()
+    seconds = time.time() - t0
+    chaos = report["chaos"]
+    with open(SERVING_REF_JSON) as f:
+        ref = json.load(f)["chaos"]
+    differ = {k: (chaos[k], ref[k]) for k in CHAOS_COUNTERS if chaos[k] != ref[k]}
+    differ.update({f"trace.{k}": (chaos["trace"][k], v) for k, v in ref["trace"].items()
+                   if abs(chaos["trace"][k] - v) > 1e-12})
+    if differ:
+        raise AssertionError(f"serving_cnn_bench: the chaos row differs from the "
+                             f"reference's committed row: {differ}")
+    emit("serving_cnn_bench", card=card, seconds=seconds,
+         out=os.path.relpath(SERVING_CNN_JSON, ROOT), launches=launched,
+         kernel_build_s=report["kernel_build_s"], first_request_s=report["first_request_s"],
+         cold_bind_p50_ms=report["cold_bind_p50_ms"],
+         buckets=[{k: r[k] for k in ("bucket", "p50_ms", "p99_ms", "device_ms",
+                                     "busy_share", "launches")} for r in report["buckets"]],
+         streamed={k: report["streamed"][k] for k in (
+             "cold_bind_p50_ms", "p50_ms", "device_ms", "busy_share", "launches")},
+         amortization_floors=report["amortization_floors"],
+         device_empty_sessions=report["config"]["device_empty_sessions"],
+         chaos={"equals_reference": True, "direct_p50_ms": chaos["direct_p50_ms"],
+                "direct_device_ms": chaos["direct_device_ms"], "trace": chaos["trace"],
+                **{k: chaos[k] for k in CHAOS_COUNTERS}})
+    return launched
+
+
+def phase_fixed_bm_servers(cfg, buckets, models, frames, devices, sizes):
+    """``CnnServer`` with ``ExecSpec(bm=FIXED_BM, ...)`` (streamed int8 wire,
+    every layer bound) in both tile layouts at full width, logits within
+    ``LOGIT_TOL`` of a CPU server, K2 launched on every layer of every chunk
+    (``serve_phase``). The packed server answers the serve phases' requests;
+    the unpacked one those up to the 32-frame bucket (exact fits and
+    padding): all of them on the unpacked layout take about a minute, most
+    of it the CPU server's (``serve_unpacked``)."""
+    t0 = time.time()
+    for packed, requests in ((True, sizes), (False, sizes[:4])):
+        spec = cnn.ExecSpec(bm=FIXED_BM, quantized=True, folded=True, streamed=True,
+                            dense_fallback=2.0, n_cu=N_CU, packed=packed)
+        serve_phase(f"serve_bm{FIXED_BM}_{'packed' if packed else 'unpacked'}", cfg, spec,
+                    buckets, models, frames, devices, sizes=requests,
+                    kernel_name="implicit_block_sparse_conv")
+    return time.time() - t0
+
+
 # the execution contracts of PERF.md §7 (a): the default ExecSpec (packed
 # tiles, dense_fallback 0.999) and the three it is held against
 EXEC_CONTRACTS = {"default": {}, "packed_fallback2": {"dense_fallback": 2.0},
@@ -1968,6 +2051,13 @@ def main(argv=None) -> int:
     # just before its run); then the execution contracts at full width
     paths["sparse_cnn"] = phase_sparse_cnn_bench(card)
     phase_exec_contracts(cfg, device, card)
+
+    # ---- main path 6, the serving bench twin (counts reset inside, just
+    # before its run); then a fixed-bm server at full width in both layouts
+    t0 = time.time()
+    paths["serving_cnn"] = phase_serving_cnn_bench(card)
+    fixed_bm_s = phase_fixed_bm_servers(cfg, buckets, models, frames, devices, sizes)
+    emit("serving_summary", card=card, seconds=time.time() - t0, fixed_bm_seconds=fixed_bm_s)
 
     for path, counts in paths.items():
         for kname in PATH_KERNELS[path]:

@@ -222,6 +222,23 @@ def _conv(x, w, stride):
     return y.permute(0, 2, 3, 1)
 
 
+def _global_avg_pool(h: torch.Tensor) -> torch.Tensor:
+    """(B, H, W, C) -> (B, C): the mean over the spatial axes, summed image
+    by image in a fixed order (pairwise halves, elementwise adds) and
+    divided once. ``torch.mean`` on CUDA splits its reduction by the whole
+    tensor's shape, so an image's pooled value could change with the batch
+    it is served in (an H100 read other bits for 2 frames served in a
+    bucket of 8 than in one of 4); here it depends on the image alone, and
+    padding a request up to its bucket stays bit-exact at every rung."""
+    b, hh, ww, c = h.shape
+    n = hh * ww
+    s = h.reshape(b, n, c)
+    while s.shape[1] > 1:
+        half = s.shape[1] // 2
+        s = torch.cat([s[:, :half] + s[:, half:2 * half], s[:, 2 * half:]], dim=1)
+    return s[:, 0] / n
+
+
 def _inv_std(var, eps):
     """1/sqrt(var + eps) as a correctly rounded square root and a correctly
     rounded division — the same bits on the CPU and on the GPU, which an
@@ -329,7 +346,7 @@ def apply(
                 sc = h
             h = _maybe_qa(torch.relu(y + sc), cfg)
             new_state[name] = ns
-    pooled = torch.mean(h, dim=(1, 2))
+    pooled = _global_avg_pool(h)
     logits = pooled @ params["fc"]["w"] + params["fc"]["b"]
     return logits, (new_state if train else state)
 
@@ -1194,5 +1211,5 @@ def apply_folded(
                 h = torch.relu(y + sc)
     if wire:
         h = h.to(torch.float32) / wire_scale        # head: exact dequant
-    pooled = torch.mean(h, dim=(1, 2))
+    pooled = _global_avg_pool(h)
     return pooled @ folded["fc"]["w"] + folded["fc"]["b"]

@@ -268,7 +268,9 @@ def test_bench_records_wall_floors_with_a_verdict():
     "TARGET", "TOL", "GATES", "WALL_KEYS", "WALL_SLACK", "ERR_KEYS", "ERR_SLACK",
     "STREAMED_HBM_RATIO_MAX", "STREAMED_WIRE_ERR_MAX", "DSB_SKIP_FRAC_MIN",
     "DSB_SPEEDUP_MIN", "DSB_DENSE_ACT_RATIO_MIN", "DSB_EXACT_ERR_MAX",
-    "TRAIN_GRAD_PARITY_MAX", "TRAIN_PRUNED_GRAD_MAX", "TRAIN_RATIO_KEY"])
+    "TRAIN_GRAD_PARITY_MAX", "TRAIN_PRUNED_GRAD_MAX", "TRAIN_RATIO_KEY",
+    "SERVING_HIT_RATE_MIN", "SERVING_AMORTIZATION_MIN", "CHAOS_MIN_FAULT_KINDS",
+    "CHAOS_SHED_RATE_MAX"])
 def test_gate_constants_are_the_reference_gates(name):
     """The twin's copy of the reference gate's constants has not drifted."""
     assert getattr(G, name) == getattr(R, name)

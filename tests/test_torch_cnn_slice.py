@@ -321,3 +321,15 @@ def test_dense_conv_forward_and_backward_are_the_library_conv(stride):
     # only the weight wants a gradient (the first layer's input)
     gw, = torch.autograd.grad(TC._DenseConv.apply(x.detach(), w, stride), (w,), g)
     assert torch.equal(gw, want[1])
+
+
+@pytest.mark.parametrize("shape", [(8, 8, 8, 16), (4, 4, 4, 64), (3, 5, 7, 3)])
+def test_global_avg_pool_is_per_image_and_the_mean(shape):
+    """The heads' pool: an image's value does not depend on the batch it is
+    in, and equals the JAX head's ``jnp.mean`` over the spatial axes."""
+    h = np.random.RandomState(0).rand(*shape).astype(np.float32)
+    pooled = TC._global_avg_pool(torch.from_numpy(h))
+    for b in (1, 2):
+        assert torch.equal(TC._global_avg_pool(torch.from_numpy(h[:b])), pooled[:b])
+    np.testing.assert_allclose(pooled.numpy(), np.asarray(jnp.mean(h, axis=(1, 2))),
+                               rtol=0, atol=1e-6)

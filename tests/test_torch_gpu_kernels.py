@@ -1077,3 +1077,40 @@ def test_dense_training_gradients_are_full_f32(dev):
     g64 = grads(tree_map(to64, pruned), tree_map(to64, state), x.double())
     g = grads(pruned, state, x)
     assert max(float((g[k] - g64[k]).abs().max()) for k in g64) <= 1e-5
+
+
+@pytest.mark.parametrize("shape", [(8, 8, 8, 16), (32, 4, 4, 64), (128, 8, 8, 64)])
+def test_global_avg_pool_does_not_depend_on_the_batch(dev, shape):
+    """The heads' pool reads the same bits for an image in any batch."""
+    from repro_torch.models import cnn
+    h = torch.rand(*shape, device=dev)
+    pooled = cnn._global_avg_pool(h)
+    for b in (1, 2, 4, shape[0] // 2):
+        assert torch.equal(cnn._global_avg_pool(h[:b]), pooled[:b]), b
+    assert float((pooled - h.mean(dim=(1, 2))).abs().max()) <= 1e-6
+
+
+@pytest.mark.parametrize("config", ["smoke", "full"])
+def test_served_logits_do_not_depend_on_the_bucket(dev, config):
+    """Per-image independence on the card, as the serving bench's chaos
+    scenario relies on it: two frames served alone and behind other frames
+    in the largest bucket read the same bits, at every rung of the streamed
+    server's ladder (the f32 rung did not while the head pooled with
+    ``torch.mean``)."""
+    from benchmarks import bench_serving_cnn_torch as BENCH
+    from repro_torch.launch.serve_cnn import CnnServer
+    from repro_torch.models import cnn
+    _, _, cfg, n_cu, buckets, _, _ = BENCH._setup(
+        BENCH.parse_args(["--smoke"] if config == "smoke" else []))
+    params, state, _ = BENCH._pruned_model(cfg, n_cu, 0.5, device=dev)
+    spec = cnn.ExecSpec(n_cu=n_cu, quantized=True, folded=True, streamed=True,
+                        dense_fallback=2.0)
+    srv = CnnServer(params, state, cfg, spec=spec, buckets=buckets, device=dev)
+    h = cfg.image_size
+    x2 = np.random.RandomState(1001).rand(2, h, h, 3).astype(np.float32)
+    rest = np.random.RandomState(1000).rand(buckets[-1] - 2, h, h, 3).astype(np.float32)
+    for level in range(len(srv.rungs)):
+        srv.force_level(level)
+        alone = srv.infer(x2).cpu()
+        behind = srv.infer(np.concatenate([rest, x2])).cpu()[-2:]
+        assert torch.equal(alone, behind), (level, float((alone - behind).abs().max()))

@@ -42,7 +42,8 @@ def test_port_has_its_modules():
                  "launch/quickstart.py"):
         assert want in names, want
     twins = {p.name for p in TWIN_FILES}
-    assert {"bench_sparse_cnn_torch.py", "check_sparse_regression_torch.py"} <= twins
+    assert {"bench_sparse_cnn_torch.py", "check_sparse_regression_torch.py",
+            "bench_serving_cnn_torch.py"} <= twins
 
 
 @pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(ROOT)))
