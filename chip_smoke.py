@@ -83,7 +83,19 @@ Run ``python3 chip_smoke.py`` from the repository root. It
    then serves the full-width network through ``CnnServer`` with a fixed
    ``ExecSpec(bm=64)`` in both tile layouts against a CPU server
    (``serve_bm64_*``),
-9. prints one JSON line per phase, then the card's name and power limit, a
+9. runs the paper's table benches (``benchmarks/bench_{cycle_model,training,
+   inference,blocksparse}_torch.py``) as ``benchmarks.run_torch --fast`` runs
+   them, on the card, as a seventh main path (``paper_tables``: K1's f32
+   instance in the block-sparse bench, every hard assert of the benches in
+   force): the cycle-model table equal to a CPU run, K1 at each block-sparse
+   level within 1e-4 of its plain version and its skipped tiles equal to a CPU
+   run, every ``simulate`` report of Table II (3 boards x {int8, uniform,
+   HAPM} x DSB x FIFO, 21 rows) equal to a CPU run on the same trained
+   models, the trained variants' losses finite and their pruned weights
+   exactly 0; it prints Table I, the HAPM-over-uniform gain per board (the
+   FPGA cycle model) and K1's device time per level beside ``torch.matmul``
+   and the bound,
+10. prints one JSON line per phase, then the card's name and power limit, a
    ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device": {...}}``.
 
 Any failing phase raises: the exit code is non-zero and no ``ok`` line is
@@ -100,16 +112,19 @@ often: ``ms`` is the device time per launch with launches queued back to
 back, ``call_ms`` one call on an idle device. ``bound_ms`` counts what the
 convolution needs (real output rows and channels); ``bound_padded_ms`` also
 counts the padded lanes and rows the kernel's output array carries.
-``launches`` sums the six main paths (serving, training, pricing,
-fixed point, the executed-sparsity bench, the serving bench), each counted
-from zero just before it is driven;
+``launches`` sums the seven main paths (serving, training, pricing,
+fixed point, the executed-sparsity bench, the serving bench, the paper's
+tables), each counted from zero just before it is driven;
 ``launches_by_path`` splits them. K2's entry also has ``by_mode``: its int8
 (``streamed``, ``int8``) and f32 instances at the representative geometry,
 streamed at batch 1 in both layouts, each beside its bound and the cuDNN
 yardstick, and f32 at the training batch in both layouts
 (``f32_batch128``). K1's ``by_mode`` has its int8 (``streamed``) and f32
 forward rows there and its f32 dX at the training batch in both layouts
-(``f32_dx_batch128``, ``f32_dx_batch128_packed``). The ``timing`` phase gives each bucket's device time per kernel
+(``f32_dx_batch128``, ``f32_dx_batch128_packed``), and
+``paper_tables_f32_forward`` its f32 forward at each level of the
+block-sparse bench (256 x 1024 x 1024, (128, 128) tiles) beside
+``torch.matmul`` (``library_ms``). The ``timing`` phase gives each bucket's device time per kernel
 (``device_ms_by_kernel``). The pricing path's times and GOP/s for the FPGA
 boards are outputs of the cycle model, not times on the card.
 """
@@ -196,6 +211,7 @@ PATH_KERNELS = {
     "sparse_cnn": ("block_sparse_matmul", "implicit_block_sparse_conv",
                    "block_sparse_grad_weight"),
     "serving_cnn": ("implicit_block_sparse_conv",),
+    "paper_tables": ("block_sparse_matmul",),
 }
 
 F32_TOL = 1e-4          # f32 kernels vs plain: summation order differs
@@ -225,6 +241,9 @@ CHAOS_COUNTERS = ("fault_kinds", "faults_injected", "resilience", "shed_rate", "
                   "answers_checked", "answers_at_recorded_rung", "wrong_answers",
                   "snapshot_warm_restart")
 FIXED_BM = 64           # a fixed M block (<= 128) bound through CnnServer
+# the paper's table benches as benchmarks.run_torch runs them, and their --fast JSON
+PAPER_BENCHES = ("cycle_model", "training", "inference", "blocksparse")
+PAPER_TABLES_JSON = os.path.join(ROOT, "build", "chip_smoke", "BENCH_paper_tables_torch_fast.json")
 
 
 def emit(phase: str, **fields) -> None:
@@ -1759,6 +1778,135 @@ def phase_serving_cnn_bench(card):
     return launched
 
 
+# ---------------------------------------------------------------------------
+# main path 7: the paper's tables (cycle model, Table I, Table II, tile HAPM)
+# ---------------------------------------------------------------------------
+
+def kernel_records(fn, device, reps: int) -> dict:
+    """The profiler's kernel records of ``reps`` back-to-back ``fn()`` calls:
+    {kernel name: {"records": how many it recorded, "ms_per_record": their
+    device time each}}, a cross-check of the CUDA-event time that shows a
+    session which dropped records (``records`` < the launches made)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    sync(device)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        sync(device)
+    return {"launches": reps, **{
+        e.key: {"records": e.count, "ms_per_record": e.self_device_time_total / e.count / 1e3}
+        for e in prof.key_averages() if e.device_type == DeviceType.CUDA and e.count}}
+
+
+def phase_paper_tables(card, device, worst):
+    """``benchmarks.run_torch --fast --only cycle_model training inference
+    blocksparse`` on the card, bench by bench through ``run_torch.run_one``
+    (training feeds inference), every hard assert of the benches in force, the
+    JSON written to ``build/chip_smoke/`` (``PAPER_TABLES_JSON``). Then, none
+    of it caught: (a) the cycle-model result equals a CPU run of its twin;
+    (b) at each level of the block-sparse bench K1's output on the card is
+    within ``F32_TOL`` of its plain version on the same CUDA operands, and the
+    skipped tiles and kept fraction equal a CPU run of the twin; (c) every
+    (board, model, DSB, FIFO) report of the inference bench equals a CPU
+    ``simulate`` of the same trained models, field by field, and so do the
+    gains that follow from them; (d) the training losses are finite, the
+    pruned variants' weights are exactly 0 under their masks and the HAPM
+    variant has pruned its target count of groups. Returns (the path's
+    launches, counted from zero just before the run; the block-sparse levels
+    for the ``kernels`` line)."""
+    from benchmarks import bench_blocksparse_torch as BS
+    from benchmarks import bench_cycle_model_torch as CM
+    from benchmarks import bench_inference_torch as INF
+    from benchmarks import bench_training_torch as TR
+    from benchmarks import run_torch
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("paper_tables: an earlier phase left TF32 matmuls on")
+    args = run_torch.parse_args(["--fast", "--only", *PAPER_BENCHES])
+    kernels.reset_launch_counts()
+    results, seconds = {}, {}
+    for name in PAPER_BENCHES:
+        t0 = time.time()
+        results[name] = run_torch.run_one(name, args, results)
+        sync(device)
+        seconds[name] = time.time() - t0
+    launched = kernels.launch_counts()
+    run_torch.write_json(PAPER_TABLES_JSON, args, results, seconds, [])
+
+    cpu_args = argparse.Namespace(device="cpu")
+    t0 = time.time()
+    # (a) the cycle model: host arithmetic, equal on both devices
+    if CM.run(cpu_args) != results["cycle_model"]:
+        raise AssertionError("paper_tables: the cycle-model table differs from a CPU run")
+    # (b) the block-sparse levels: K1 against its plain version on the card's
+    # operands; the skipped tiles and kept fraction against a CPU run
+    bs, bs_cpu = results["blocksparse"], BS.run(cpu_args)
+    skips = lambda row: (row["skipped"], row["kept_frac"])
+    differ = {t: (skips(bs[t]), skips(bs_cpu[t])) for t in BS.TARGETS
+              if skips(bs[t]) != skips(bs_cpu[t])}
+    if differ:
+        raise AssertionError(f"paper_tables: block-sparse levels differ from a CPU run: {differ}")
+    cpu_masks = {t: tm for t, _, _, tm, _, _ in BS.levels(torch.device("cpu"))}
+    levels = {}
+    for target, x, w, tm, plan, f in BS.levels(device):
+        got = f(x, w)
+        idx, cnt = (torch.from_numpy(a).to(device) for a in (plan.idx, plan.cnt))
+        plain = lambda: BSM.block_sparse_matmul_plain(x, w, idx, cnt, block=BS.BLOCK, bm=128)
+        want = plain()
+        err = float((got - want).abs().max())
+        worst["block_sparse_matmul"] = max(worst["block_sparse_matmul"], err)
+        if not err <= F32_TOL:
+            raise AssertionError(f"paper_tables: K1 at level {target} is {err} from its "
+                                 f"plain version")
+        levels[target] = {"shape": [BS.M, BS.K, BS.N], "block": list(BS.BLOCK),
+                          **bs[target], "max_abs_err_vs_plain": err,
+                          "plain_device_ms": BS.device_ms(plain, device),
+                          "profiler": kernel_records(lambda: f(x, w), device, 20),
+                          "tile_mask_equals_cpu": bool(np.array_equal(tm, cpu_masks[target]))}
+    # (c) every simulate report of the inference bench against a CPU run of
+    # the same trained models, and the gains from them
+    models = {m.name: m for m in results["training"]["models"]}
+    ds = results["training"]["dataset"]
+    imgs, labels = ds.test_x[:INF.N_FRAMES], ds.test_y[:INF.N_FRAMES]
+    on_card = results["inference"]["reports"]
+    on_cpu, diffs = {}, {}
+    for key, rep in on_card.items():
+        bname, mname, dsb, fifo = key
+        on_cpu[key] = INF.simulate_row(models[mname], bname, dsb, fifo, imgs, labels, "cpu")
+        d = report_differences(rep, on_cpu[key])
+        if d:
+            diffs["|".join(map(str, key))] = d
+    if diffs:
+        raise AssertionError(f"paper_tables: the card's reports differ from the CPU run: {diffs}")
+    gains_cpu = INF.gains(on_cpu)
+    for k in ("improvements", "hapm_vs_uniform"):
+        if gains_cpu[k] != results["inference"][k]:
+            raise AssertionError(f"paper_tables: {k} differ from the CPU run")
+    # (d) what must hold of the trained variants
+    checks = TR.mask_checks(results["training"]["models"])
+    if not (checks["losses_finite"] and all(checks["zero_under_mask"].values())
+            and checks["hapm_groups_pruned"] == checks["hapm_target_groups"]):
+        raise AssertionError(f"paper_tables: the trained variants fail their checks: {checks}")
+    compare_s = time.time() - t0
+
+    tr, inf = results["training"], results["inference"]
+    emit("paper_tables", card=card, seconds=seconds, compare_on_cpu_seconds=compare_s,
+         out=os.path.relpath(PAPER_TABLES_JSON, ROOT), launches=launched,
+         table1={"accuracies": tr["accuracies"], "sparsities": tr["sparsities"],
+                 "train_seconds": tr["train_seconds"], "train_steps": tr["train_steps"],
+                 "loss_curves": {m.name: m.history for m in tr["models"]},
+                 "frames": [ds.num_train, ds.num_test]},
+         training_checks=checks,
+         hapm_over_uniform_gain_cycle_model_fpga=inf["hapm_vs_uniform"],
+         speedup_over_int8_nodsb_cycle_model_fpga=inf["improvements"],
+         reports_equal_cpu=len(on_card),
+         cycle_model={k: results["cycle_model"][k]
+                      for k in ("worked_example_cycles", "gops_72dsp_100mhz")},
+         blocksparse=levels)
+    return launched, levels
+
+
 def phase_fixed_bm_servers(cfg, buckets, models, frames, devices, sizes):
     """``CnnServer`` with ``ExecSpec(bm=FIXED_BM, ...)`` (streamed int8 wire,
     every layer bound) in both tile layouts at full width, logits within
@@ -2059,6 +2207,11 @@ def main(argv=None) -> int:
     fixed_bm_s = phase_fixed_bm_servers(cfg, buckets, models, frames, devices, sizes)
     emit("serving_summary", card=card, seconds=time.time() - t0, fixed_bm_seconds=fixed_bm_s)
 
+    # ---- main path 7, the paper's tables (counts reset inside, just before
+    # the benches run); an older tree under --baseline may not have them
+    if not args.baseline or os.path.exists(os.path.join(ROOT, "benchmarks", "run_torch.py")):
+        paths["paper_tables"], paper_levels = phase_paper_tables(card, device, worst)
+
     for path, counts in paths.items():
         for kname in PATH_KERNELS[path]:
             if counts[kname] < 1:
@@ -2068,9 +2221,15 @@ def main(argv=None) -> int:
     if args.baseline:
         return 0
     print(card, flush=True)
-    print(json.dumps({"kernels": kernels_line(paths, worst, rep, rep_gw, rep_i8,
-                                              k2_by_mode, k1_by_mode)}),
-          flush=True)
+    lines = kernels_line(paths, worst, rep, rep_gw, rep_i8, k2_by_mode, k1_by_mode)
+    k1 = next(l for l in lines if l["name"] == "block_sparse_matmul")
+    k1["paper_tables_f32_forward"] = {
+        str(t): {"shape": lv["shape"], "kept_frac": lv["kept_frac"],
+                 "ms": lv["kernel_device_ms"], "plain_ms": lv["plain_device_ms"],
+                 "bound_ms": lv["bound_ms"],
+                 "bound_by": lv["bound_by"], "library_ms": lv["matmul_device_ms"],
+                 "max_abs_err": lv["max_abs_err_vs_plain"]} for t, lv in paper_levels.items()}
+    print(json.dumps({"kernels": lines}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

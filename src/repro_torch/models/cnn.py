@@ -243,9 +243,14 @@ def _inv_std(var, eps):
     """1/sqrt(var + eps) as a correctly rounded square root and a correctly
     rounded division — the same bits on the CPU and on the GPU, which an
     approximate ``rsqrt`` does not give. BN-folded weights feed per-channel
-    calibration and int8 code emission, so a last-bit difference between
-    devices would flip codes."""
-    return 1.0 / torch.sqrt(var + eps)
+    calibration and int8 code emission, and BN's output feeds the Q3.4
+    activation codes, so a last-bit difference between devices would flip
+    codes. ``torch.sqrt`` of an f32 CUDA tensor is not correctly rounded
+    (an H100 gave another last bit than the CPU for some values); the root
+    is taken in f64 and rounded to f32, which is the correctly rounded f32
+    root (53 >= 2 * 24 + 2 bits) and the CPU's f32 ``torch.sqrt`` bit for
+    bit. The f32 sum and division are the same bits on both devices."""
+    return 1.0 / torch.sqrt((var + eps).double()).float()
 
 
 def _bn(x, p, s, train: bool, cfg: ResNetConfig):

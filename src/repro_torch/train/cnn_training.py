@@ -44,6 +44,13 @@ class TrainedModel:
     masks: Optional[dict]
     history: list
     test_accuracy: float
+    seconds: float = 0.0   # host clock over the epochs, the device synchronized
+    steps: int = 0         # SGD steps taken
+
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
 
 
 def _loss_fn(params, state, batch, cfg, sparse=None):
@@ -156,6 +163,8 @@ def train_variant(
     sched = ReduceLROnPlateau(base_lr=base_lr, factor=0.5, patience=2)
     history = []
     step = 0
+    _sync(dev)
+    t_train = time.time()
     for epoch in range(epochs):
         sparse_step = None
         if variant == "hapm":
@@ -196,10 +205,13 @@ def train_variant(
                   f"lr={sched.lr:.4f} [{path} {epoch_s:.1f}s]")
 
     params = apply_masks(params, masks)
+    _sync(dev)
+    seconds = time.time() - t_train
     acc = evaluate(params, state, cfg, ds, device=dev)
     if verbose:
         print(f"  [{variant}] test accuracy: {acc:.4f}")
-    return TrainedModel(variant, cfg, params, state, masks, history, acc)
+    return TrainedModel(variant, cfg, params, state, masks, history, acc,
+                        seconds=seconds, steps=step)
 
 
 def train_all_variants(ds, epochs=(6, 3, 4, 4), verbose=True, n_cu=12,

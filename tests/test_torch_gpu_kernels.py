@@ -1114,3 +1114,58 @@ def test_served_logits_do_not_depend_on_the_bucket(dev, config):
         alone = srv.infer(x2).cpu()
         behind = srv.infer(np.concatenate([rest, x2])).cpu()[-2:]
         assert torch.equal(alone, behind), (level, float((alone - behind).abs().max()))
+
+
+@pytest.mark.parametrize("target", [0.25, 0.5, 0.75])
+def test_blocksparse_bench_levels_on_the_card(dev, target):
+    """The tile-HAPM block-sparse bench (``bench_blocksparse_torch``) at each
+    level, K1's f32 instance on the card: within 1e-4 of its plain version on
+    the same CUDA operands, one launch per call, and the skipped tiles of a
+    CPU run."""
+    from benchmarks import bench_blocksparse_torch as BS
+    t, x, w, tm, plan, f = next(lv for lv in BS.levels(dev) if lv[0] == target)
+    cpu_tm = next(lv[3] for lv in BS.levels(torch.device("cpu")) if lv[0] == target)
+    assert plan.skipped_tiles == int((~cpu_tm).sum()) == {0.25: 16, 0.5: 32, 0.75: 48}[target]
+    before = BSM.launch_count()
+    got = f(x, w)
+    torch.cuda.synchronize()
+    assert BSM.launch_count() == before + 1
+    want = BSM.block_sparse_matmul_plain(x, w, torch.from_numpy(plan.idx).to(dev),
+                                         torch.from_numpy(plan.cnt).to(dev),
+                                         block=BS.BLOCK, bm=128)
+    _check(got, want, 1e-4)
+
+
+def test_simulate_report_on_the_card_equals_the_cpu(dev):
+    """One Table II row (HAPM 0.5 on the 100 MHz Zedboard, DSB on) priced by
+    ``simulate`` with its accuracy forward and activation capture on the card:
+    every field equal to a CPU run on the same models and frames."""
+    import dataclasses
+    from repro_torch.accel import BOARDS, simulate
+    from repro_torch.core import (HAPMConfig, apply_masks, hapm_element_masks,
+                                  hapm_epoch_update, hapm_init)
+    from repro_torch.data.synthetic import SyntheticCifar
+    from repro_torch.models import cnn
+    cfg = cnn.ResNetConfig(quantized=True)
+    params, state = cnn.init(0, cfg, device="cpu")
+    specs = cnn.conv_group_specs(params, 12)
+    hcfg = HAPMConfig(0.5, 1)
+    st = hapm_epoch_update(hapm_init(specs, hcfg), specs, params, hcfg)
+    params = apply_masks(params, hapm_element_masks(specs, st))
+    ds = SyntheticCifar(num_train=8, num_test=32)
+    reps = [simulate(params, state, cfg, BOARDS["zedboard_100mhz_72dsp"], ds.test_x,
+                     ds.test_y, device=d) for d in (dev, "cpu")]
+    for f in dataclasses.fields(reps[0]):
+        a, b = (getattr(r, f.name) for r in reps)
+        assert a == b, f.name
+    assert reps[0].row() == reps[1].row()
+
+
+def test_bn_inverse_std_is_the_same_bits_on_the_card(dev):
+    """BN's 1/sqrt(var + eps) reads the same bits on the card as on the CPU
+    (an f32 ``torch.sqrt`` does not: the Q3.4 codes after BN, and with them
+    ``simulate``'s activation-column fractions, then differed between a card
+    run and a CPU run of the same trained model)."""
+    from repro_torch.models import cnn
+    var = torch.rand(1_000_000, generator=torch.Generator().manual_seed(0)) * 10
+    assert torch.equal(cnn._inv_std(var.to(dev), 1e-5).cpu(), cnn._inv_std(var, 1e-5))

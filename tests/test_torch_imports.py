@@ -43,13 +43,71 @@ def test_port_has_its_modules():
         assert want in names, want
     twins = {p.name for p in TWIN_FILES}
     assert {"bench_sparse_cnn_torch.py", "check_sparse_regression_torch.py",
-            "bench_serving_cnn_torch.py"} <= twins
+            "bench_serving_cnn_torch.py", "bench_cycle_model_torch.py",
+            "bench_training_torch.py", "bench_inference_torch.py",
+            "bench_blocksparse_torch.py", "run_torch.py"} <= twins
 
 
 @pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_forbidden_imports(path):
     bad = [(mod, line) for mod, line in _imported_roots(path) if mod in FORBIDDEN]
     assert not bad, f"{path}: imports {bad}"
+
+
+REFERENCE_BENCHES = {p.stem for p in (ROOT / "benchmarks").glob("*.py")
+                     if not p.stem.endswith("_torch") and p.stem != "__init__"}
+
+
+def _benchmark_modules(path: pathlib.Path):
+    """(module of ``benchmarks/`` imported, line), by absolute
+    (``benchmarks.x``, ``from benchmarks import x``) or relative
+    (``from . import x``, ``from .x import y``) import."""
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for a in node.names:
+                parts = a.name.split(".")
+                if parts[0] == "benchmarks" and len(parts) > 1:
+                    yield parts[1], node.lineno
+        elif isinstance(node, ast.ImportFrom):
+            if node.level == 0 and node.module and node.module.split(".")[0] != "benchmarks":
+                continue
+            if node.level > 1:
+                continue
+            sub = (node.module or "").split(".")
+            if node.level == 0:
+                sub = sub[1:]
+            if sub and sub[0]:
+                yield sub[0], node.lineno
+            else:
+                for a in node.names:
+                    yield a.name, node.lineno
+
+
+def test_reference_bench_modules_are_known():
+    assert {"cnn_training", "run", "bench_training", "bench_inference",
+            "bench_cycle_model", "bench_blocksparse", "bench_sparse_cnn",
+            "bench_serving_cnn", "check_sparse_regression"} <= REFERENCE_BENCHES
+
+
+@pytest.mark.parametrize("path", TWIN_FILES, ids=lambda p: p.name)
+def test_twins_import_no_reference_bench(path):
+    bad = [(m, line) for m, line in _benchmark_modules(path) if m in REFERENCE_BENCHES]
+    assert not bad, f"{path}: imports reference bench modules {bad}"
+
+
+@pytest.mark.parametrize("source,found", [
+    ("from . import cnn_training as CT", ["cnn_training"]),
+    ("from .bench_training import run", ["bench_training"]),
+    ("from benchmarks import run, bench_training_torch", ["run", "bench_training_torch"]),
+    ("import benchmarks.bench_inference", ["bench_inference"]),
+    ("from benchmarks.run_torch import main", ["run_torch"]),
+    ("from repro_torch import accel", []),
+])
+def test_benchmark_import_finder(tmp_path, source, found):
+    f = tmp_path / "x.py"
+    f.write_text(source + "\n")
+    assert [m for m, _ in _benchmark_modules(f)] == found
 
 
 def test_importing_the_port_needs_no_compiler():
