@@ -77,7 +77,10 @@ TIMED = ("p50_ms / p99_ms / *cold*_ms: percentiles of blocking requests (frames 
          "device_ms: torch.profiler's device-side kernel and copy time per request, "
          "the median of {sessions} sessions, each opened on an idle device over "
          "back-to-back requests (at least {reps}) that hold about {window_ms} ms of "
-         "device work. busy_share = device_ms / p50_ms. launches: K1 and K2 CUDA "
+         "device work. A session in which the profiler kept no record of a launched "
+         "kernel, past its retries, is timed instead by CUDA events around the same "
+         "requests queued behind a spin kernel (device_event_sessions). "
+         "busy_share = device_ms / p50_ms. launches: K1 and K2 CUDA "
          "launches per timed request.")
 # the kernels a request launches (K3 and K4 are training's and the fixed point's)
 SERVE_KERNELS = ("block_sparse_matmul", "implicit_block_sparse_conv")
@@ -518,6 +521,9 @@ def run(args=None) -> dict:
               f"{'pass' if v['pass'] else 'fail'}")
     out["chaos"] = run_chaos(args, timer)
     out["config"]["device_empty_sessions"] = timer.empty_sessions
+    out["config"]["device_short_sessions"] = timer.short_sessions
+    out["config"]["device_scaled_sessions"] = timer.scaled_sessions
+    out["config"]["device_event_sessions"] = timer.event_sessions
     _write(out, args.out)
     print(f"\nwrote {args.out}")
     return out

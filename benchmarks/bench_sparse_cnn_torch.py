@@ -53,7 +53,8 @@ from repro_torch.core import (HAPMConfig, HAPMState, apply_masks,
                               hapm_element_masks, hapm_epoch_update, hapm_init)
 from repro_torch.core.masks import tree_flatten_with_path, tree_map, tree_map_with_path
 from repro_torch.core.quant import f32_parity_is_exact
-from repro_torch.kernels import profile_device_us
+from repro_torch.kernels import (profile_device_records, queued_device_ms, record_mismatch,
+                                 records_by_kernel, scaled_device_us)
 from repro_torch.models import cnn
 from repro_torch.train.loop import value_and_grad
 
@@ -69,9 +70,14 @@ REPS, TRAIN_REPS = 5, 3                     # blocking reps per wall (min of)
 # DEVICE_REPS, at most DEVICE_MAX_CALLS) for about DEVICE_WINDOW_MS of device work
 DEVICE_REPS, DEVICE_SESSIONS, DEVICE_WINDOW_MS, DEVICE_MAX_CALLS = 3, 3, 1.0, 1000
 # a session in which the profiler records no device event at all (seen on an
-# H100 between two good sessions of the same call) is opened again, at most
-# this many times per reading; ``Timer.empty_sessions`` counts them
+# H100 between two good sessions of the same call), or another number of
+# launches of the port's kernels than the wrappers made (records lost at a
+# window's start or taken from the window before, seen on an H100), is opened
+# again, at most this many times per reading, after a pause that doubles from
+# DEVICE_RETRY_PAUSE_S (the losses come in bursts of ~0.1 s on an H100);
+# ``Timer.empty_sessions`` and ``Timer.short_sessions`` count them
 DEVICE_EMPTY_RETRIES = 3
+DEVICE_RETRY_PAUSE_S = 0.1
 DSB_LAYER = ("s2b0", "conv1", "w")          # 32 -> 64, stride 2, 8x8 in
 TIMED = ("wall_*_ms / train_step_*_ms: min over {reps} (training {train_reps}) "
          "blocking calls after one warmup; on CUDA, CUDA events around each call "
@@ -79,7 +85,10 @@ TIMED = ("wall_*_ms / train_step_*_ms: min over {reps} (training {train_reps}) "
          "host's Python glue is included. device_*_ms: torch.profiler's "
          "device-side kernel and copy time per call, the median of {device_sessions} "
          "sessions, each opened on an idle device over back-to-back calls (at least "
-         "{device_reps}) that hold about {device_window_ms} ms of device work.")
+         "{device_reps}) that hold about {device_window_ms} ms of device work. "
+         "A session in which the profiler kept no record of a launched kernel, past "
+         "its retries, is timed instead by CUDA events around the same calls queued "
+         "behind a spin kernel (device_event_sessions).")
 
 
 def _sync(device: torch.device) -> None:
@@ -97,6 +106,9 @@ class Timer:
     device: torch.device
     reps: int = REPS
     empty_sessions: int = 0         # profiler sessions that recorded nothing
+    short_sessions: int = 0         # ... or not each kernel launch, once
+    scaled_sessions: int = 0        # short past the retries: kernel time per record
+    event_sessions: int = 0         # ... and a kernel with no record: CUDA events
 
     def times(self, fn, *a, reps=None):
         """(last output, [seconds of each of ``reps`` blocking ``fn(*a)``
@@ -132,25 +144,68 @@ class Timer:
         enough back-to-back calls for about ``DEVICE_WINDOW_MS`` of device
         work, and opens on an idle device; their median. (A single
         three-call session read None once and ~3x its neighbours twice for a
-        0.01-0.03 ms call.) A session that records no device time is opened
-        again, ``DEVICE_EMPTY_RETRIES`` times at most in one reading, and
-        counted in ``empty_sessions``; past that it raises. None off CUDA."""
+        0.01-0.03 ms call.) Each session opens after one unrecorded warm-up
+        call, between two fence kernels (``profile_device_records``). A
+        session that records no device time, or another number of launches
+        of one of the port's kernels than its wrapper counted in the
+        session, is opened again after a pause, ``DEVICE_EMPTY_RETRIES``
+        times at most in one reading, and counted in ``empty_sessions`` or
+        ``short_sessions``. Past that the attempt that kept the most records
+        counts its kernels by the records kept (each kernel's time per record
+        times its launches, ``scaled_device_us``; counted in
+        ``scaled_sessions``); where no attempt kept device time and a record
+        of every launched kernel, the session is timed by CUDA events around
+        the same calls queued behind a spin kernel (``queued_device_ms``,
+        which also counts the device's time between kernels; counted in
+        ``event_sessions``), and it raises only where that cannot hold the
+        calls behind the spin either. (Late in a long process the profiler
+        lost most records of some readings in every session on an H100, and
+        every record of the DSB layer's kernel in all six sessions of one
+        reading.) None off CUDA."""
         if self.device.type != "cuda":
             return None
-        empty = 0
+        retried = 0
+
+        def kept_share(records, launched) -> float:
+            """How close to one record a launch: 1 when each was kept once,
+            less as records are lost or borrowed from another window."""
+            got = records_by_kernel(records)
+            return min((min(got[k] / n, n / got[k]) if got[k] else 0.0
+                        for k, n in launched.items() if n), default=1.0)
 
         def session(calls: int) -> float:
-            nonlocal empty
+            nonlocal retried
+            best = None                 # the attempt that kept the most records
             while True:
                 _sync(self.device)
-                total_us = sum(profile_device_us(lambda: fn(*a), calls, self.device).values())
-                if total_us > 0:
+                records, launched, _ = profile_device_records(lambda: fn(*a), calls, self.device)
+                total_us = sum(us for us, _ in records.values())
+                missing = record_mismatch(launched, records)
+                if total_us > 0 and not missing:
                     return total_us / calls / 1e3
-                empty += 1
-                self.empty_sessions += 1
-                if empty > DEVICE_EMPTY_RETRIES:
-                    raise RuntimeError(f"the profiler recorded no device time in {empty} "
-                                       f"sessions of {calls} calls on {self.device}")
+                if total_us > 0 and (best is None or kept_share(records, launched) > best[0]):
+                    best = (kept_share(records, launched), launched, records)
+                retried += 1
+                if total_us <= 0:
+                    self.empty_sessions += 1
+                else:
+                    self.short_sessions += 1
+                if retried <= DEVICE_EMPTY_RETRIES:
+                    time.sleep(DEVICE_RETRY_PAUSE_S * 2 ** (retried - 1))
+                    continue
+                scaled = None if best is None else scaled_device_us(best[1], best[2])
+                if scaled is not None:
+                    self.scaled_sessions += 1
+                    return scaled / calls / 1e3
+                queued = queued_device_ms(lambda: fn(*a), calls, self.device)
+                if queued is not None:
+                    self.event_sessions += 1
+                    return queued
+                raise RuntimeError(
+                    f"the profiler recorded no device time or not each kernel launch "
+                    f"({missing}: records, launches) in {retried} sessions of "
+                    f"{calls} calls on {self.device}, and the calls could not be "
+                    f"queued behind a spin kernel to time them by CUDA events")
 
         per_call = session(DEVICE_REPS)
         calls = min(DEVICE_MAX_CALLS, max(DEVICE_REPS, math.ceil(DEVICE_WINDOW_MS / per_call)))
@@ -646,6 +701,9 @@ def run(args=None) -> dict:
                       "reps": REPS, "train_reps": TRAIN_REPS, "device_reps": DEVICE_REPS,
                       "device_sessions": DEVICE_SESSIONS, "device_window_ms": DEVICE_WINDOW_MS,
                       "device_empty_sessions": timer.empty_sessions,
+                      "device_short_sessions": timer.short_sessions,
+                      "device_scaled_sessions": timer.scaled_sessions,
+                      "device_event_sessions": timer.event_sessions,
                       "timed": TIMED.format(reps=REPS, train_reps=TRAIN_REPS,
                                             device_reps=DEVICE_REPS,
                                             device_sessions=DEVICE_SESSIONS,

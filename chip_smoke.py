@@ -95,7 +95,23 @@ Run ``python3 chip_smoke.py`` from the repository root. It
    exactly 0; it prints Table I, the HAPM-over-uniform gain per board (the
    FPGA cycle model) and K1's device time per level beside ``torch.matmul``
    and the bound,
-10. prints one JSON line per phase, then the card's name and power limit, a
+10. runs the transformer LM family's serving path as an eighth main path
+   (``lm_transformer``, no kernel of this repo: each of K1-K4 must read 0
+   launches): the eight transformer-family architectures at smoke size
+   against CPU runs of the port on the same weights (logits and, dense and
+   MoE, decode against the full forward); mistral-nemo-12b and
+   granite-moe-3b-a800m at full width with 2 of their layers (weights from a
+   seed), prefilled and greedily decoded in bf16 as ``launch/serve.py`` does
+   (batch 4, prompt 64, 64 new tokens), timed with CUDA events and the
+   profiler (a decode step's device time divided by the steps its records
+   hold); their f32 copies against the port's CPU run, f32 decode against the
+   f32 forward, bf16 against f32; chunked attention at S 2048 against dense;
+   MoE's dropped (token, slot) share at prefill; the bf16 prefills under the
+   sharding rules of a ``(1, 1)`` mesh bit-equal to those without,
+   ``moe_manual_tp`` (a one-rank NCCL ``all_reduce``) against the CPU's, the
+   params laid out by ``param_specs``, ``prefetch`` of 8 ``TokenStream``
+   batches and ``restore_elastic`` of a checkpoint onto the mesh bit-equal,
+11. prints one JSON line per phase, then the card's name and power limit, a
    ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device": {...}}``.
 
 Any failing phase raises: the exit code is non-zero and no ``ok`` line is
@@ -112,9 +128,9 @@ often: ``ms`` is the device time per launch with launches queued back to
 back, ``call_ms`` one call on an idle device. ``bound_ms`` counts what the
 convolution needs (real output rows and channels); ``bound_padded_ms`` also
 counts the padded lanes and rows the kernel's output array carries.
-``launches`` sums the seven main paths (serving, training, pricing,
+``launches`` sums the eight main paths (serving, training, pricing,
 fixed point, the executed-sparsity bench, the serving bench, the paper's
-tables), each counted from zero just before it is driven;
+tables, the LM family), each counted from zero just before it is driven;
 ``launches_by_path`` splits them. K2's entry also has ``by_mode``: its int8
 (``streamed``, ``int8``) and f32 instances at the representative geometry,
 streamed at batch 1 in both layouts, each beside its bound and the cuDNN
@@ -133,8 +149,10 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import hashlib
+import itertools
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -154,7 +172,8 @@ from repro_torch.core import (HAPMConfig, apply_masks, full_masks, global_sparsi
                               magnitude_masks)
 from repro_torch.core.groups import fpga_conv_groups
 from repro_torch.core.masks import tree_map
-from repro_torch.core.masks import tree_flatten_with_path
+from repro_torch.core.masks import (tree_flatten_with_path, tree_leaves,
+                                     tree_map_with_path)
 from repro_torch.core.quant import QuantSpec
 from repro_torch.data.synthetic import SyntheticCifar
 from repro_torch.kernels import _build
@@ -212,6 +231,7 @@ PATH_KERNELS = {
                    "block_sparse_grad_weight"),
     "serving_cnn": ("implicit_block_sparse_conv",),
     "paper_tables": ("block_sparse_matmul",),
+    "lm_transformer": (),       # the LM family calls none of them: each must read 0
 }
 
 F32_TOL = 1e-4          # f32 kernels vs plain: summation order differs
@@ -627,23 +647,42 @@ OWN_KERNELS = {"implicit_block_sparse_conv": ("implicit_conv_kernel",),
                "int8_matmul": (K4_KERNEL,)}
 
 
+PROFILER_RETRIES = 3    # sessions opened again after losing kernel records,
+PROFILER_RETRY_PAUSE_S = 0.1    # after a pause that doubles (losses come in bursts)
+
+
 def profiler_device_ms(fn, device, reps: int):
     """Device time per ``fn()`` call from the profiler, as a cross-check of
     ``device_ms`` and as the split of a request: ``{"total_ms": all GPU
     kernels and copies that ``reps`` calls put on the device, per call,
     "kernels_ms": the share of this repo's own CUDA kernels, "by_kernel":
-    that share per kernel}``. Only
+    that share per kernel, "short_sessions": sessions opened again}``. Only
     device-side events are summed (an operator's host-side event repeats
-    its kernels' time). ``None`` where the profiler cannot trace the device
-    or records no device time. (``fn`` has already run once,
+    its kernels' time). Each session opens after one unrecorded warm-up
+    call. A session that recorded another number of launches of one of
+    this repo's kernels than its wrapper made is opened again, ``PROFILER_RETRIES``
+    times at most: a total is divided by the calls only when it holds a
+    record of every launch. ``None`` (said on stderr) past that, or where
+    the profiler cannot trace the device or records no device time. (``fn`` has already run once,
     unprofiled, when tracing starts: an error of ``fn`` itself is not hidden.)"""
     fn()
     sync(device)
-    try:
-        by_key = kernels.profile_device_us(fn, reps, device)
-    except RuntimeError as e:       # no device tracing here: an auxiliary
-        print(f"chip_smoke: profiler unavailable ({e})", file=sys.stderr)
-        return None                 # figure is missing, nothing is wrong
+    for short in range(PROFILER_RETRIES + 1):
+        try:
+            records, launched, _ = kernels.profile_device_records(fn, reps, device)
+        except RuntimeError as e:   # no device tracing here: an auxiliary
+            print(f"chip_smoke: profiler unavailable ({e})", file=sys.stderr)
+            return None             # figure is missing, nothing is wrong
+        missing = kernels.record_mismatch(launched, records)
+        if not missing:
+            break
+        time.sleep(PROFILER_RETRY_PAUSE_S * 2 ** short)
+    else:                           # an auxiliary figure: missing, and said so
+        print(f"chip_smoke: the profiler did not record each kernel launch once in "
+              f"{short + 1} sessions of {reps} calls: {missing} (records, launches)",
+              file=sys.stderr)
+        return None
+    by_key = {k: us for k, (us, _) in records.items()}
     total_us = sum(by_key.values())
     by_kernel = {kname: sum(t for key, t in by_key.items() if any(n in key for n in names))
                  for kname, names in OWN_KERNELS.items()}
@@ -651,7 +690,8 @@ def profiler_device_ms(fn, device, reps: int):
         return None
     return {"total_ms": total_us / reps / 1e3,
             "kernels_ms": sum(by_kernel.values()) / reps / 1e3,
-            "by_kernel": {k: v / reps / 1e3 for k, v in by_kernel.items()}}
+            "by_kernel": {k: v / reps / 1e3 for k, v in by_kernel.items()},
+            "short_sessions": short}
 
 
 def library_ms(case, device, reps) -> float:
@@ -1783,21 +1823,18 @@ def phase_serving_cnn_bench(card):
 # ---------------------------------------------------------------------------
 
 def kernel_records(fn, device, reps: int) -> dict:
-    """The profiler's kernel records of ``reps`` back-to-back ``fn()`` calls:
-    {kernel name: {"records": how many it recorded, "ms_per_record": their
-    device time each}}, a cross-check of the CUDA-event time that shows a
-    session which dropped records (``records`` < the launches made)."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    """The profiler's kernel records of ``reps`` back-to-back ``fn()`` calls
+    (after an unrecorded warm-up call): {"launches": this repo's launches
+    in the window, kernel name: {"records": how many it recorded,
+    "ms_per_record": their device time each}}, a cross-check of the
+    CUDA-event time that shows a session which dropped records
+    (``records`` < ``launches``)."""
     fn()
     sync(device)
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        sync(device)
-    return {"launches": reps, **{
-        e.key: {"records": e.count, "ms_per_record": e.self_device_time_total / e.count / 1e3}
-        for e in prof.key_averages() if e.device_type == DeviceType.CUDA and e.count}}
+    records, launched, fences = kernels.profile_device_records(fn, reps, device)
+    return {"launches": {k: n for k, n in launched.items() if n}, "fences_kept": fences,
+            **{key: {"records": n, "ms_per_record": us / n / 1e3}
+               for key, (us, n) in records.items() if n}}
 
 
 def phase_paper_tables(card, device, worst):
@@ -2025,6 +2062,390 @@ def phase_exec_contracts(cfg, device, card, batch: int = TRAIN_BATCH, reps: int 
              "predicted": rep.dsb_skip_frac_predicted})
 
 
+# ---------------------------------------------------------------------------
+# main path 8: the transformer LM family, prefill and decode at full width
+# ---------------------------------------------------------------------------
+
+LM_ARCHS = ("gemma2-9b", "gemma-7b", "qwen3-32b", "mistral-nemo-12b", "paligemma-3b",
+            "musicgen-medium", "granite-moe-3b-a800m", "mixtral-8x22b")
+LM_FULL = ("mistral-nemo-12b", "granite-moe-3b-a800m")
+LM_LAYERS = 2           # the one cut of the full-width models: 2 of their layers
+LM_SERVE = (4, 64, 64)  # batch, prompt, new tokens (greedy), as launch/serve.py
+LM_LOGIT_TOL = 1e-4     # f32 logits, card vs CPU, x max |logit|
+LM_DECODE_TOL = 2e-4    # f32 decode vs the full forward, x max |logit| (smoke: absolute)
+LM_BF16_TOL = 5e-2      # bf16 logits vs f32, x max |logit|
+LM_CHUNK_S = 2048       # > attn_chunk (1024): the chunked online softmax
+LM_CKPT_DIR = os.path.join(ROOT, "build", "chip_smoke", "lm_ckpt")
+
+
+def import_lm_path() -> None:
+    """Import the LM path's modules into this module's namespace when the
+    path runs (an older tree timed under ``--baseline`` may not have them)."""
+    global TREG, prefetch, TokenStream, ShardFlags, make_rules, param_specs, use_rules
+    global placements, make_host_mesh, MOE, TT, CKPT, restore_elastic
+    from repro_torch.configs import registry as TREG
+    from repro_torch.data.pipeline import prefetch
+    from repro_torch.data.synthetic import TokenStream
+    from repro_torch.dist import ShardFlags, make_rules, param_specs, use_rules
+    from repro_torch.dist.api import placements
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import moe as MOE
+    from repro_torch.models import transformer as TT
+    from repro_torch.train import checkpoint as CKPT
+    from repro_torch.train.elastic import restore_elastic
+
+
+def lm_batch(cfg, B: int, S: int, seed: int) -> dict:
+    """The inputs of one forward, from a numpy seed: tokens, and for the
+    VLM (image prefix) and audio (frame embeddings) families the stubbed
+    frontend's embeddings."""
+    rs = np.random.RandomState(seed)
+    if cfg.family == "audio":
+        return {"tokens": None,
+                "embeds": (rs.randn(B, S, cfg.d_model) * 0.1).astype(np.float32)}
+    if cfg.family == "vlm":
+        P = cfg.num_prefix_tokens
+        return {"tokens": rs.randint(0, cfg.vocab_size, (B, S - P)).astype(np.int32),
+                "embeds": (rs.randn(B, P, cfg.d_model) * 0.1).astype(np.float32)}
+    return {"tokens": rs.randint(0, cfg.vocab_size, (B, S)).astype(np.int32)}
+
+
+def on(batch: dict, device) -> dict:
+    return {k: None if v is None else torch.from_numpy(v).to(device) for k, v in batch.items()}
+
+
+def rel_err(got, want) -> float:
+    """max |got - want| / max |want|, in float64 on the CPU."""
+    got, want = got.double().cpu(), want.double().cpu()
+    return float((got - want).abs().max() / want.abs().max())
+
+
+def check(label: str, value: float, bar: float) -> float:
+    if not value <= bar:
+        raise AssertionError(f"lm_transformer: {label} is {value} (bar {bar})")
+    return value
+
+
+def lm_drop_free(cfg):
+    return dataclasses.replace(cfg, capacity_factor=float(cfg.num_experts)) \
+        if cfg.family == "moe" else cfg
+
+
+def lm_decode_vs_full(params, cfg, toks, device) -> float:
+    """Prefill half of ``toks`` (B, S), decode the rest one token at a
+    time; the largest distance of a step's logits from the full forward's
+    at that position, x max |logit|."""
+    B, S = toks.shape
+    full, _, _ = TT.forward(params, {"tokens": toks}, cfg)
+    last, caches = TT.prefill(params, {"tokens": toks[:, :S // 2]}, cfg, max_len=S)
+    errs = [rel_err(last, full[:, S // 2 - 1])]
+    for t in range(S // 2, S):
+        last, caches = TT.decode_step(params, caches, toks[:, t],
+                                      torch.full((B,), t, dtype=torch.int32, device=device),
+                                      cfg)
+        errs.append(rel_err(last, full[:, t]))
+    return max(errs)
+
+
+def phase_lm_smoke(device) -> dict:
+    """The eight transformer-family architectures at smoke size (f32), the
+    same weights (drawn on the CPU from a seed) and inputs on the card and on
+    the CPU: logits and aux within ``LM_LOGIT_TOL`` x max |logit|, and
+    (dense and MoE, MoE at drop-free capacity) decode against the full
+    forward on the card within ``LM_DECODE_TOL``."""
+    out = {}
+    cpu = torch.device("cpu")
+    for i, arch in enumerate(LM_ARCHS):
+        cfg = TREG.get(arch).smoke
+        params = TT.init(100 + i, cfg, device=cpu)
+        card = tree_map(lambda t: t.to(device), params)
+        b = lm_batch(cfg, 2, 16, 200 + i)
+        lc, _, ac = TT.forward(card, on(b, device), cfg)
+        lh, _, ah = TT.forward(params, on(b, cpu), cfg)
+        row = {"logits_vs_cpu": check(f"{arch} smoke logits vs CPU", rel_err(lc, lh),
+                                      LM_LOGIT_TOL),
+               "aux_vs_cpu": check(f"{arch} smoke aux vs CPU", abs(float(ac) - float(ah)),
+                                   1e-5)}
+        if cfg.family in ("dense", "moe"):
+            dcfg = lm_drop_free(cfg)
+            toks = torch.from_numpy(lm_batch(dcfg, 2, 16, 300 + i)["tokens"]).to(device)
+            row["decode_vs_full"] = check(f"{arch} smoke decode vs full",
+                                          lm_decode_vs_full(card, dcfg, toks, device),
+                                          LM_DECODE_TOL)
+        out[arch] = row
+    return out
+
+
+def lm_step_device_ms(fn, device, calls: int = 10) -> dict:
+    """Device time of one ``fn()`` (a decode step) from the profiler, over
+    the steps its records hold: a step's record count is the most common of
+    five one-step sessions', a session of ``calls`` steps must hold exactly
+    ``calls`` times that many (``profile_device_records`` fences a window;
+    the profiler still loses or borrows records now and then), else it is
+    opened again, ``PROFILER_RETRIES`` times at most; past that the time is
+    not measured (``None``)."""
+    fn()
+    sync(device)
+    counts = [sum(n for _, n in kernels.profile_device_records(fn, 1, device).records.values())
+              for _ in range(5)]
+    per_step = statistics.mode(counts)
+    for short in range(PROFILER_RETRIES + 1):
+        recs = kernels.profile_device_records(fn, calls, device).records
+        n = sum(c for _, c in recs.values())
+        if n == calls * per_step:
+            ms = sum(us for us, _ in recs.values()) / 1e3 / calls
+            break
+        time.sleep(PROFILER_RETRY_PAUSE_S * 2 ** short)
+    else:
+        ms = None
+    return {"device_ms": ms, "records_per_step": per_step, "one_step_records": counts,
+            "records": n, "steps": calls, "short_sessions": short}
+
+
+def lm_serve(params, cfg, prompts, device) -> dict:
+    """``launch/serve.py``'s loop: prefill the prompts, then greedy decode
+    ``LM_SERVE[2] - 1`` steps, timed with CUDA events (a warm run first).
+    Returns the times, the generated tokens and the prefill's caches."""
+    B, P = prompts.shape
+    T = LM_SERVE[2]
+
+    def run():
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        ev[0].record()
+        logits, caches = TT.prefill(params, {"tokens": prompts}, cfg, max_len=P + T)
+        ev[1].record()
+        tok = torch.argmax(logits, -1).to(torch.int32)
+        out = [tok]
+        c = caches
+        for i in range(T - 1):
+            logits, c = TT.decode_step(params, c, tok,
+                                       torch.full((B,), P + i, dtype=torch.int32,
+                                                  device=device), cfg)
+            tok = torch.argmax(logits, -1).to(torch.int32)
+            out.append(tok)
+        ev[2].record()
+        ev[2].synchronize()
+        return ev, torch.stack(out, 1), caches, tok
+
+    run()
+    ev, tokens, caches, tok = run()
+    decode_ms = ev[1].elapsed_time(ev[2])
+    step = lambda: TT.decode_step(params, caches, tok,
+                                  torch.full((B,), P, dtype=torch.int32, device=device), cfg)
+    return {"prefill_ms": ev[0].elapsed_time(ev[1]),
+            "decode_ms_per_token": decode_ms / (T - 1),
+            "tokens_per_s": B * (T - 1) / (decode_ms / 1e3),
+            "decode_step_profiler": lm_step_device_ms(step, device),
+            "peak_gb": torch.cuda.max_memory_allocated(device) / 1e9,
+            "_tokens": tokens}
+
+
+def lm_dropped_share(params, cfg, prompts, max_len) -> dict:
+    """The share of (token, slot) pairs the MoE layers drop at prefill,
+    read from the router's dispatch of each layer."""
+    seen = []
+    route = MOE.route
+
+    def recording(logits, cfg_, capacity):
+        r = route(logits, cfg_, capacity)
+        seen.append((int((~r["keep"]).sum()), r["keep"].numel(), capacity))
+        return r
+
+    MOE.route = recording
+    try:
+        TT.prefill(params, {"tokens": prompts}, cfg, max_len=max_len)
+    finally:
+        MOE.route = route
+    dropped, pairs = sum(d for d, _, _ in seen), sum(n for _, n, _ in seen)
+    return {"dropped_share": dropped / pairs, "dropped": dropped, "pairs": pairs,
+            "capacity_per_expert": seen[0][2], "by_layer": [d / n for d, n, _ in seen]}
+
+
+def lm_bytes(params) -> int:
+    return sum(t.numel() * t.element_size() for t in tree_leaves(params))
+
+
+def phase_lm_full(arch, device, card, mesh):
+    """One full-width model with ``LM_LAYERS`` layers: bf16 serving
+    (prefill, greedy decode) timed; the f32 copy's prefill logits against
+    the port's CPU run; f32 decode against the f32 full forward on the card;
+    bf16 logits and greedy tokens against f32; (dense) the chunked attention
+    at ``LM_CHUNK_S`` against dense; (MoE) the share of dropped pairs; the
+    bf16 prefill under ``(1, 1)`` rules bit-equal to it without; (MoE) the
+    ``moe_manual_tp`` branch against the CPU port's; the params laid out by
+    ``param_specs`` bit-equal. Returns (its line, the f32 params)."""
+    full = TREG.get(arch).config
+    cfg = dataclasses.replace(full, num_layers=LM_LAYERS)
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    B, P, T = LM_SERVE
+    torch.cuda.reset_peak_memory_stats(device)
+    t0 = time.time()
+    p32 = TT.init(7, cfg32, device=device)
+    pbf = tree_map_with_path(
+        lambda path, t: t if path[-1] == "router" else t.to(torch.bfloat16), p32)
+    prompts = torch.from_numpy(np.random.RandomState(11).randint(
+        0, cfg.vocab_size, (B, P)).astype(np.int32)).to(device)
+    init_s = time.time() - t0
+
+    serve = lm_serve(pbf, cfg, prompts, device)
+    serve32 = lm_serve(p32, cfg32, prompts, device)
+    tokens_bf, tokens_32 = serve.pop("_tokens"), serve32.pop("_tokens")
+
+    # f32 prefill: card against the port's CPU run on the same weights
+    cpu = torch.device("cpu")
+    caches = lambda dev: TT.init_caches(cfg32, B, P + T, device=dev)
+    l32, _, _ = TT.forward(p32, {"tokens": prompts}, cfg32, caches=caches(device))
+    t0 = time.time()
+    p32_cpu = tree_map(lambda t: t.cpu(), p32)
+    lcpu, _, _ = TT.forward(p32_cpu, {"tokens": prompts.cpu()}, cfg32, caches=caches(cpu))
+    cpu_s = time.time() - t0
+    row = {"config": {**dataclasses.asdict(cfg), "cut": f"{LM_LAYERS} of {full.num_layers} "
+                      f"layers"},
+           "params": sum(t.numel() for t in tree_leaves(p32)),
+           "bf16_bytes": lm_bytes(pbf), "f32_bytes": lm_bytes(p32), "init_s": init_s,
+           "bf16": serve, "f32": serve32,
+           "f32_prefill_vs_cpu": check(f"{arch} f32 prefill vs CPU", rel_err(l32, lcpu),
+                                       LM_LOGIT_TOL),
+           "cpu_prefill_s": cpu_s}
+    del p32_cpu, lcpu
+
+    dcfg = lm_drop_free(cfg32)
+    row["f32_decode_vs_full"] = check(f"{arch} f32 decode vs full", lm_decode_vs_full(
+        p32, dcfg, prompts, device), LM_DECODE_TOL)
+    lbf, _, _ = TT.forward(pbf, {"tokens": prompts}, cfg, caches=TT.init_caches(
+        cfg, B, P + T, device=device))
+    # held for the dense model; MoE's is recorded only: a token whose router
+    # picks another expert in bf16 than in f32 takes other weights altogether
+    row["bf16_vs_f32_logits"] = rel_err(lbf, l32)
+    if cfg.family != "moe":
+        check(f"{arch} bf16 vs f32 logits", row["bf16_vs_f32_logits"], LM_BF16_TOL)
+    row["bf16_vs_f32_argmax_agree"] = float((lbf.argmax(-1) == l32.argmax(-1)).float().mean())
+    row["greedy_tokens_agree"] = float((tokens_bf == tokens_32).float().mean())
+
+    if cfg.family == "moe":
+        row["prefill_dropped"] = lm_dropped_share(pbf, cfg, prompts, P + T)
+    else:
+        x = torch.from_numpy(np.random.RandomState(13).randint(
+            0, cfg.vocab_size, (1, LM_CHUNK_S)).astype(np.int32)).to(device)
+        assert cfg32.attn_impl == "chunked" and LM_CHUNK_S > cfg32.attn_chunk
+        with torch.no_grad():
+            chunked, _, _ = TT.forward(p32, {"tokens": x}, cfg32)
+            dense, _, _ = TT.forward(p32, {"tokens": x},
+                                     dataclasses.replace(cfg32, attn_impl="dense"))
+        row["chunked_vs_dense"] = {"S": LM_CHUNK_S, "chunk": cfg32.attn_chunk,
+                                   "err": check(f"{arch} chunked vs dense attention",
+                                                rel_err(chunked, dense), LM_LOGIT_TOL)}
+        del chunked, dense
+
+    # under the rules of a (1, 1) mesh: constrain changes nothing
+    rules = make_rules(mesh, "serve")
+    plain, _ = TT.prefill(pbf, {"tokens": prompts}, cfg, max_len=P + T)
+    with use_rules(rules):
+        ruled, _ = TT.prefill(pbf, {"tokens": prompts}, cfg, max_len=P + T)
+    if not torch.equal(ruled, plain):
+        raise AssertionError(f"lm_transformer: {arch} logits under (1, 1) rules differ "
+                             f"by {float((ruled - plain).abs().max())}")
+    row["rules_bit_equal"] = True
+    if cfg.family == "moe":
+        row["moe_manual_tp"] = lm_manual_tp(p32, cfg32, pbf, cfg, prompts, mesh)
+
+    specs = param_specs(pbf, rules)
+    from torch.distributed.tensor import distribute_tensor
+    laid = tree_map(lambda t, s: distribute_tensor(t, mesh, placements(s, mesh)), pbf, specs)
+    if not all(torch.equal(d.full_tensor(), t) for d, t in zip(tree_leaves(laid),
+                                                                 tree_leaves(pbf))):
+        raise AssertionError(f"lm_transformer: {arch} params laid out by param_specs differ")
+    row["param_specs_full_tensor_bit_equal"] = True
+    del laid
+    row["peak_gb"] = torch.cuda.max_memory_allocated(device) / 1e9
+    row["card"] = card
+    return row, p32
+
+
+def lm_manual_tp(p32, cfg32, pbf, cfg, prompts, mesh) -> dict:
+    """The prefill through ``moe_manual_tp``'s f32-boundary branch (a
+    one-rank NCCL ``all_reduce`` over ``model``): the f32 model against the
+    CPU port's same branch (a gloo group) on the same weights (held: in bf16
+    the rest of the model's card and CPU products round differently); and
+    in bf16, how far the branch's f32 experts move the logits from the local
+    path's bf16 ones (recorded)."""
+    flags = ShardFlags(moe_manual_tp=True)
+    B, P, T = LM_SERVE
+    prefill = lambda params, c, toks: TT.prefill(params, {"tokens": toks}, c,
+                                                 max_len=P + T)[0]
+    with use_rules(make_rules(mesh, "serve", flags)):
+        got, bf_manual = prefill(p32, cfg32, prompts), prefill(pbf, cfg, prompts)
+    p_cpu = tree_map(lambda t: t.cpu(), p32)
+    with use_rules(make_rules(make_host_mesh(device="cpu"), "serve", flags)):
+        want = prefill(p_cpu, cfg32, prompts.cpu())
+    return {"f32_vs_cpu": check("moe_manual_tp f32 vs the CPU's", rel_err(got, want),
+                                LM_LOGIT_TOL),
+            "bf16_vs_local_bf16_experts": rel_err(bf_manual, prefill(pbf, cfg, prompts))}
+
+
+def lm_pipeline_and_restore(p32_granite, mesh, device) -> dict:
+    """``prefetch`` of 8 ``TokenStream`` batches to the card (plain and under
+    rules) equal to the host batches; ``restore_elastic`` of a saved granite
+    checkpoint onto the mesh with ``param_specs`` bit-equal."""
+    cfg = TREG.get("granite-moe-3b-a800m").config
+    B, P, _ = LM_SERVE
+    host = list(itertools.islice(TokenStream(cfg.vocab_size, P, seed=5).batches(B, seed=6), 8))
+    rules = make_rules(mesh, "serve")
+    out = {}
+    for label, r in (("plain", None), ("rules", rules)):
+        got = list(prefetch(iter(host), r, device=device))
+        if len(got) != len(host):
+            raise AssertionError(f"lm_transformer: prefetch ({label}) gave {len(got)} batches")
+        for g, h in zip(got, host):
+            for k, v in h.items():
+                t = g[k].full_tensor() if hasattr(g[k], "full_tensor") else g[k]
+                if t.device.type != device.type or not np.array_equal(t.cpu().numpy(), v):
+                    raise AssertionError(f"lm_transformer: prefetch ({label}) batch differs")
+        out[f"prefetch_{label}"] = len(got)
+    shutil.rmtree(LM_CKPT_DIR, ignore_errors=True)
+    t0 = time.time()
+    CKPT.save(LM_CKPT_DIR, 1, p32_granite)
+    specs = param_specs(p32_granite, rules)
+    restored, _ = restore_elastic(LM_CKPT_DIR, p32_granite, rules, specs)
+    ok = all(torch.equal(r.full_tensor(), t) for r, t in zip(tree_leaves(restored),
+                                                              tree_leaves(p32_granite)))
+    shutil.rmtree(LM_CKPT_DIR, ignore_errors=True)
+    if not ok:
+        raise AssertionError("lm_transformer: restore_elastic differs from the saved params")
+    out["restore_elastic_bit_equal"] = True
+    out["restore_elastic_s"] = time.time() - t0
+    return out
+
+
+def phase_lm_transformer(card, device) -> dict:
+    """The eighth main path: the transformer LM family's serving path, with
+    the launch counts of K1-K4 set to 0 just before and read just after (the
+    path calls no kernel of this repo: each must read 0). Returns them."""
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("lm_transformer: an earlier phase left TF32 matmuls on")
+    import_lm_path()
+    t0 = time.time()
+    mesh = make_host_mesh()
+    kernels.reset_launch_counts()
+    smoke = phase_lm_smoke(device)
+    rows, p32 = {}, {}
+    for arch in LM_FULL:
+        rows[arch], p = phase_lm_full(arch, device, card, mesh)
+        if arch == "granite-moe-3b-a800m":
+            p32[arch] = p
+        del p
+    rows["pipeline"] = lm_pipeline_and_restore(p32.pop("granite-moe-3b-a800m"), mesh, device)
+    launched = kernels.launch_counts()
+    if any(launched.values()):
+        raise AssertionError(f"lm_transformer: the LM path launched this repo's kernels "
+                             f"{launched}")
+    emit("lm_transformer", card=card, seconds=time.time() - t0, launches=launched,
+         mesh={"shape": list(mesh.shape), "names": list(mesh.mesh_dim_names),
+               "backend": torch.distributed.get_backend()},
+         smoke=smoke, **rows)
+    return launched
+
+
 def kernels_line(paths, worst, rep, rep_gw, rep_i8, by_mode, k1_by_mode):
     """The ``kernels`` list of the last-but-one line: every ported kernel at
     its representative shape, with its launches on each main path
@@ -2211,6 +2632,12 @@ def main(argv=None) -> int:
     # the benches run); an older tree under --baseline may not have them
     if not args.baseline or os.path.exists(os.path.join(ROOT, "benchmarks", "run_torch.py")):
         paths["paper_tables"], paper_levels = phase_paper_tables(card, device, worst)
+
+    # ---- main path 8, the transformer LM family at full width (counts reset
+    # inside, just before it runs; each of the four must read 0 after it)
+    if not args.baseline or os.path.exists(os.path.join(ROOT, "src", "repro_torch", "models",
+                                                        "transformer.py")):
+        paths["lm_transformer"] = phase_lm_transformer(card, device)
 
     for path, counts in paths.items():
         for kname in PATH_KERNELS[path]:

@@ -1,0 +1,10 @@
+"""mistral-nemo-12b: assigned architecture config (see registry.py for the
+source-annotated definition). Exposes CONFIG / SMOKE / SHAPES / SKIPS."""
+from .registry import get as _get
+
+_E = _get("mistral-nemo-12b")
+CONFIG = _E.config
+SMOKE = _E.smoke
+SHAPES = _E.shapes
+SHAPE_OVERRIDES = _E.shape_overrides
+SKIPS = _E.skips

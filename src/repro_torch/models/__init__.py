@@ -1,2 +1,3 @@
-"""Model zoo of the port: the paper's CNN."""
+"""Model zoo of the port: the paper's CNN and the transformer LM family
+(``lm_config``, ``layers``, ``moe``, ``frontends``, ``transformer``)."""
 from . import cnn

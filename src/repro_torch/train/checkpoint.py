@@ -220,16 +220,35 @@ def load_flat(ckpt_dir: str, step: Optional[int] = None) -> tuple:
 
 
 def restore(ckpt_dir: str, skeleton: PyTree, step: Optional[int] = None,
-            device=None) -> tuple:
+            device=None, sharding_fn: Optional[Callable] = None) -> tuple:
     """Restore into ``skeleton``'s structure. Returns (tree, manifest); the
     leaves are numpy arrays, or tensors on ``device`` when one is given.
+    ``sharding_fn(path, arr)`` may return a ``dist.NamedSharding`` to lay a
+    leaf out on load (elastic restart onto a different mesh): the leaf
+    becomes a DTensor on that mesh, with the sharding's placements
+    (``path`` is the leaf's tuple of dict keys and sequence indices; a
+    ``None`` sharding leaves the leaf as ``device`` says).
     With ``step=None`` corrupt/partial checkpoints are skipped (warned) in
     favor of the newest readable one; an explicitly-requested corrupt step
     raises :class:`CorruptCheckpointError`."""
     flat, meta = _read_flat(ckpt_dir, step)
     place = None if device is None else (
         lambda a: torch.from_numpy(np.array(a, copy=True)).to(device))
-    return _unflatten_into(skeleton, flat, place), meta
+    tree = _unflatten_into(skeleton, flat, place)
+    if sharding_fn is not None:
+        from torch.distributed.tensor import distribute_tensor
+
+        from ..core.masks import tree_map_with_path
+
+        def lay_out(path, a):
+            sh = sharding_fn(path, a)
+            if sh is None:
+                return a
+            t = a if isinstance(a, torch.Tensor) else torch.from_numpy(np.array(a, copy=True))
+            return distribute_tensor(t.to(sh.mesh.device_type), sh.mesh, sh.placements)
+
+        tree = tree_map_with_path(lay_out, tree)
+    return tree, meta
 
 
 # signum -> {"fn": current save fn, "prev": handler we displaced}; module

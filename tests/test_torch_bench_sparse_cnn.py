@@ -303,3 +303,122 @@ def test_gate_training_check_prints_the_reference_lines(tmp_path, capsys):
     want = R.check_training(row, baseline)
     want_out = capsys.readouterr().out.splitlines()
     assert set(want) <= set(got) and set(want_out) <= set(got_out)
+
+
+def _stubbed_profiler(monkeypatch, sessions):
+    """``Timer.device_ms`` on a stubbed profiler: each session reports the
+    next of ``sessions`` — (records kept of K2's kernel, µs per call) — for
+    calls that each count one K2 launch. Returns the Timer and the launch
+    counter the calls bump."""
+    from repro_torch.kernels import DeviceProfile
+    counts = {"implicit_block_sparse_conv": 0}
+    feed = iter(sessions)
+
+    def fake_profile(fn, calls, device):
+        fn()                                        # the unrecorded warm-up call
+        before = dict(counts)
+        for _ in range(calls):
+            fn()
+        kept, us = next(feed)
+        kept = calls if kept is None else kept
+        launched = {k: n - before[k] for k, n in counts.items()}
+        return DeviceProfile({"void implicit_conv_kernel_imma<64>(Args)": (us * kept, kept),
+                              "Memcpy HtoD (Pageable -> Device)": (0.0 if us == 0 else 1.0, 1)},
+                             launched, 2)
+
+    def launch():
+        counts["implicit_block_sparse_conv"] += 1
+
+    monkeypatch.setattr(B, "profile_device_records", fake_profile)
+    monkeypatch.setattr(B, "_sync", lambda device: None)
+    return B.Timer(torch.device("cuda")), launch
+
+
+def test_device_ms_opens_a_short_session_again(monkeypatch):
+    """A session whose profile kept 1 of its 3 launches of the port's kernel
+    reads low (its total over the calls); it is opened again and counted in
+    ``short_sessions``, and the reading comes from complete sessions."""
+    monkeypatch.setattr(B, "DEVICE_RETRY_PAUSE_S", 0.0)
+    # sizing session short, then complete; three complete window sessions
+    timer, launch = _stubbed_profiler(monkeypatch, [(1, 500.0), (None, 500.0),
+                                                    (None, 500.0), (None, 510.0),
+                                                    (None, 490.0)])
+    ms = timer.device_ms(launch)
+    assert timer.short_sessions == 1 and timer.empty_sessions == 0
+    # 3 calls of 500 us + 1 us of copies a session: ~0.5 ms a call
+    assert ms == pytest.approx((3 * 500.0 + 1.0) / 3 / 1e3)
+
+
+def test_device_ms_past_the_retries_counts_by_the_records_kept(monkeypatch):
+    """Short past the retry limit: the kernel's time per record kept, times
+    its launches (the copy as recorded), counted in ``scaled_sessions``."""
+    monkeypatch.setattr(B, "DEVICE_RETRY_PAUSE_S", 0.0)
+    timer, launch = _stubbed_profiler(
+        monkeypatch, [(0, 0.0)] + [(2, 400.0)] * B.DEVICE_EMPTY_RETRIES + [(None, 400.0)] * 3)
+    ms = timer.device_ms(launch)
+    assert timer.empty_sessions == 1
+    assert timer.short_sessions == B.DEVICE_EMPTY_RETRIES and timer.scaled_sessions == 1
+    assert ms == pytest.approx((3 * 400.0 + 1.0) / 3 / 1e3)
+
+
+def test_device_ms_raises_past_the_retry_limit_without_records(monkeypatch):
+    """A kernel launched and never recorded cannot be scaled, and calls
+    that cannot be queued behind a spin kernel cannot be timed by CUDA
+    events either: it raises."""
+    monkeypatch.setattr(B, "DEVICE_RETRY_PAUSE_S", 0.0)
+    monkeypatch.setattr(B, "queued_device_ms", lambda fn, calls, device: None)
+    timer, launch = _stubbed_profiler(
+        monkeypatch, [(0, 0.0)] * (B.DEVICE_EMPTY_RETRIES + 1))
+    with pytest.raises(RuntimeError, match="not each kernel launch"):
+        timer.device_ms(launch)
+    assert timer.empty_sessions == B.DEVICE_EMPTY_RETRIES + 1
+    assert timer.event_sessions == 0
+
+
+@pytest.mark.parametrize("kept", [0, None])
+def test_device_ms_past_the_retries_without_records_times_by_events(monkeypatch, kept):
+    """The DSB layer's kernel with no record in any session (``kept`` 0:
+    other events recorded; ``None``: nothing recorded at all): past the
+    retries the session is timed by CUDA events around the same calls,
+    counted in ``event_sessions``; the sessions after it are the
+    profiler's again."""
+    monkeypatch.setattr(B, "DEVICE_RETRY_PAUSE_S", 0.0)
+    queued = []
+
+    def fake_queued(fn, calls, device):
+        before = len(queued)
+        for _ in range(calls + 1):                  # a warm-up call, then the calls
+            fn()
+            queued.append(1)
+        assert len(queued) - before == calls + 1
+        return 0.75
+
+    monkeypatch.setattr(B, "queued_device_ms", fake_queued)
+    first = (0, 300.0) if kept == 0 else (0, 0.0)
+    timer, launch = _stubbed_profiler(
+        monkeypatch, [first] * (B.DEVICE_EMPTY_RETRIES + 1) + [(None, 500.0)] * 3)
+    ms = timer.device_ms(launch)
+    assert timer.event_sessions == 1 and timer.scaled_sessions == 0
+    assert timer.short_sessions + timer.empty_sessions == B.DEVICE_EMPTY_RETRIES + 1
+    assert len(queued) == B.DEVICE_REPS + 1
+    # the sizing session read 0.75 ms a call: 3 sessions of 3 calls, 0.5 ms each
+    assert ms == pytest.approx((3 * 500.0 + 1.0) / 3 / 1e3)
+
+
+def test_record_mismatch_counts_each_kernel():
+    from repro_torch.kernels import record_mismatch, records_by_kernel
+    records = {"void block_sparse_matmul_imma_kernel<128>(A)": (10.0, 3),
+               "void block_sparse_matmul_mma_kernel<float>(A)": (10.0, 2),
+               "void grad_weight_stack_kernel<float>(A)": (5.0, 4),
+               "void grad_weight_reduce_kernel(A)": (1.0, 4),
+               "void int8_matmul_imma_kernel<64>(A)": (1.0, 1)}
+    assert records_by_kernel(records) == {
+        "block_sparse_matmul": 5, "implicit_block_sparse_conv": 0,
+        "block_sparse_grad_weight": 4, "int8_matmul": 1}
+    launched = {"block_sparse_matmul": 6, "implicit_block_sparse_conv": 0,
+                "block_sparse_grad_weight": 4, "int8_matmul": 1}
+    assert record_mismatch(launched, records) == {"block_sparse_matmul": (5, 6)}
+    # records borrowed from another window are a mismatch too
+    launched["int8_matmul"] = 0
+    assert record_mismatch(launched, records) == {"block_sparse_matmul": (5, 6),
+                                                  "int8_matmul": (1, 0)}

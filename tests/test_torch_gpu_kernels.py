@@ -37,8 +37,14 @@ M and N that are no multiple of it (8 to 8192), K from 1 to 2048 with
 tails shorter than a 32- or 16-deep step, 16-, 8-, 4-byte and element
 copies (operands one byte off alignment), -128 and 127 rows and columns with
 sums past 2^24 and both scale forms, bit-equal to the plain version and to
-``int8_matmul_ref`` and across two launches. Marked ``gpu``: skipped (with a reason, decided inside a fixture)
-on a machine without a CUDA device, run on one with
+``int8_matmul_ref`` and across two launches; and the transformer LM
+family, which launches none of these kernels: each smoke config's logits on
+the card against the CPU, the KV ring buffer at a prefill longer than its
+window, ``moe_manual_tp`` through a one-rank NCCL group, and ``prefetch``'s
+copy-stream ordering on 256 MB batches; and the event-timed fallback of
+the bench timers against the profiler. Marked ``gpu``: skipped (with a
+reason, decided inside a fixture) on a machine without a CUDA device, run
+on one with
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu_kernels.py
 
@@ -1169,3 +1175,128 @@ def test_bn_inverse_std_is_the_same_bits_on_the_card(dev):
     from repro_torch.models import cnn
     var = torch.rand(1_000_000, generator=torch.Generator().manual_seed(0)) * 10
     assert torch.equal(cnn._inv_std(var.to(dev), 1e-5).cpu(), cnn._inv_std(var, 1e-5))
+
+
+# ---------------------------------------------------------------------------
+# The transformer LM family on the card (no kernel of this repo: its
+# products are library matmuls; these hold the card's run to the CPU's)
+# ---------------------------------------------------------------------------
+
+LM_ARCHS = ("gemma2-9b", "gemma-7b", "qwen3-32b", "mistral-nemo-12b", "paligemma-3b",
+            "musicgen-medium", "granite-moe-3b-a800m", "mixtral-8x22b")
+
+
+def _lm_batch(cfg, B, S, seed):
+    rs = np.random.RandomState(seed)
+    if cfg.family == "audio":
+        return {"tokens": None,
+                "embeds": (rs.randn(B, S, cfg.d_model) * 0.1).astype(np.float32)}
+    if cfg.family == "vlm":
+        P = cfg.num_prefix_tokens
+        return {"tokens": rs.randint(0, cfg.vocab_size, (B, S - P)).astype(np.int32),
+                "embeds": (rs.randn(B, P, cfg.d_model) * 0.1).astype(np.float32)}
+    return {"tokens": rs.randint(0, cfg.vocab_size, (B, S)).astype(np.int32)}
+
+
+@pytest.mark.parametrize("arch", LM_ARCHS)
+def test_lm_smoke_forward_and_prefill_on_the_card_match_the_cpu(dev, arch):
+    """Each transformer-family smoke config (f32, TF32 off): the same
+    weights and inputs on the card and on the CPU, logits within 1e-4 of
+    the largest |logit| — the plain forward and a prefill through caches."""
+    from repro_torch.configs import registry
+    from repro_torch.core.masks import tree_map
+    from repro_torch.models import transformer as TT
+    assert not torch.backends.cuda.matmul.allow_tf32
+    cfg = registry.get(arch).smoke
+    params = TT.init(3, cfg, device="cpu")
+    card = tree_map(lambda t: t.to(dev), params)
+    b = _lm_batch(cfg, 2, 16, 5)
+    on = lambda d: {k: None if v is None else torch.from_numpy(v).to(d) for k, v in b.items()}
+    for caches in (False, True):
+        kw = lambda d: {"caches": TT.init_caches(cfg, 2, 20, device=d)} if caches else {}
+        lc, _, ac = TT.forward(card, on(dev), cfg, **kw(dev))
+        lh, _, ah = TT.forward(params, on("cpu"), cfg, **kw("cpu"))
+        assert float((lc.cpu() - lh).abs().max()) <= 1e-4 * float(lh.abs().max())
+        assert abs(float(ac) - float(ah)) <= 1e-5
+
+
+def test_lm_ring_buffer_longer_prefill_on_the_card(dev):
+    """A prefill of 16 positions into an 8-slot ring (S > W) on CUDA: each
+    slot keeps the last position that maps to it (``index_put_`` with
+    duplicate indices would pick one at random), the same as the CPU."""
+    from repro_torch.configs import registry
+    from repro_torch.models import layers as L
+    cfg = registry.get("gemma2-9b").smoke
+    g = torch.Generator().manual_seed(1)
+    p = L.attn_init(g, cfg, torch.float32)
+    x = torch.randn(3, 16, cfg.d_model, generator=g)
+    pos = torch.arange(16, dtype=torch.int32)[None].expand(3, 16)
+    for _ in range(3):
+        out = {}
+        for d in (dev, torch.device("cpu")):
+            cache = L.attn_cache_init(cfg, 3, 8, torch.float32, device=d)
+            o, c = L.attn_apply({k: v.to(d) for k, v in p.items()}, x.to(d), cfg, pos.to(d),
+                                8, cache)
+            out[d.type] = (o.cpu(), {k: v.cpu() for k, v in c.items()})
+        assert torch.equal(out["cuda"][1]["pos"], out["cpu"][1]["pos"])
+        assert torch.equal(out["cuda"][1]["pos"][0], torch.arange(8, 16, dtype=torch.int32))
+        assert float((out["cuda"][1]["k"] - out["cpu"][1]["k"]).abs().max()) <= 1e-5
+        assert float((out["cuda"][0] - out["cpu"][0]).abs().max()) <= 1e-4
+
+
+def test_moe_manual_tp_through_a_one_rank_nccl_group(dev):
+    """``moe_manual_tp`` on the card's (1, 1) mesh: the f32-boundary branch,
+    its sum over ``model`` an ``all_reduce`` on a one-rank NCCL group, equal
+    to the local path run in f32 and cast back."""
+    import dataclasses
+    import torch.distributed as dist
+    from repro_torch.configs import registry
+    from repro_torch.dist import ShardFlags, make_rules, use_rules
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import moe as M
+    mesh = make_host_mesh()
+    assert dist.get_backend(mesh.get_group("model")) in ("nccl", "cpu:gloo,cuda:nccl")
+    cfg = dataclasses.replace(registry.get("granite-moe-3b-a800m").smoke, dtype="bfloat16")
+    g = torch.Generator(device=dev).manual_seed(2)
+    p = M.moe_init(g, cfg, torch.bfloat16, device=dev)
+    x = torch.randn(2, 12, cfg.d_model, generator=g, device=dev).to(torch.bfloat16)
+    with use_rules(make_rules(mesh, "serve", ShardFlags(moe_manual_tp=True))):
+        got, aux = M.moe_apply(p, x, cfg)
+    want, aux_w = M.moe_apply({k: v.float() for k, v in p.items()}, x.float(),
+                              dataclasses.replace(cfg, dtype="float32"))
+    assert got.dtype == torch.bfloat16
+    assert torch.equal(got, want.to(torch.bfloat16)) and torch.equal(aux, aux_w)
+
+
+def test_prefetch_waits_for_its_copies_on_a_large_batch(dev):
+    """``prefetch`` copies 256 MB batches on its own stream from a
+    background thread; the consumer's stream reads each batch at once, and
+    it must be the whole batch (the consumer waits on the copy's event)."""
+    from repro_torch.data.pipeline import prefetch
+    n = 64 * 1024 * 1024                 # int32: 256 MB a batch
+
+    def source():
+        for i in range(6):
+            yield {"x": np.full((n,), i, np.int32), "none": None}
+
+    seen = []
+    for i, b in enumerate(prefetch(source(), depth=2, device=dev)):
+        assert b["none"] is None and b["x"].device.type == "cuda"
+        seen.append(bool((b["x"] == i).all()))
+    assert seen == [True] * 6
+
+
+def test_queued_device_ms_agrees_with_the_profiler_and_refuses_a_waiting_call(dev):
+    """``queued_device_ms`` (the bench timers' way past a profiler that
+    lost every record of a kernel) reads a product's device time within
+    10 % of the profiler's time per record, and reads ``None`` for a call
+    that waits on the device, which a spin kernel cannot hold back."""
+    from repro_torch.kernels import profile_device_records, queued_device_ms
+    a = torch.randn(2048, 2048, device=dev)
+    fn = lambda: torch.mm(a, a)
+    got = queued_device_ms(fn, 20, dev)
+    records = profile_device_records(fn, 20, dev).records
+    us, n = map(sum, zip(*records.values()))
+    per_call = max(1, round(n / 20))            # the product's kernels a call
+    assert n > 0 and got == pytest.approx(us / n * per_call / 1e3, rel=0.1)
+    assert queued_device_ms(lambda: fn().sum().item(), 5, dev) is None

@@ -39,13 +39,40 @@ def test_port_has_its_modules():
                  "train/loop.py", "train/checkpoint.py", "train/cnn_training.py",
                  "accel/config.py", "accel/cycle_model.py", "accel/scheduler.py",
                  "accel/simulator.py", "kernels/int8_matmul.py",
-                 "launch/quickstart.py"):
+                 "launch/quickstart.py", "dist/__init__.py", "dist/api.py",
+                 "dist/sharding.py", "launch/mesh.py", "data/pipeline.py",
+                 "train/elastic.py", "models/lm_config.py", "models/layers.py",
+                 "models/moe.py", "models/transformer.py", "models/frontends.py",
+                 "configs/registry.py", *(f"configs/{a}.py" for a in COPIED_CONFIGS)):
         assert want in names, want
     twins = {p.name for p in TWIN_FILES}
     assert {"bench_sparse_cnn_torch.py", "check_sparse_regression_torch.py",
             "bench_serving_cnn_torch.py", "bench_cycle_model_torch.py",
             "bench_training_torch.py", "bench_inference_torch.py",
             "bench_blocksparse_torch.py", "run_torch.py"} <= twins
+
+
+COPIED_CONFIGS = ("gemma2_9b", "gemma_7b", "granite_moe_3b_a800m", "mistral_nemo_12b",
+                  "mixtral_8x22b", "musicgen_medium", "paligemma_3b", "qwen3_32b",
+                  "xlstm_350m", "zamba2_7b")
+
+
+def _statements(path: pathlib.Path) -> list:
+    """The module's statements, its docstring left out."""
+    body = ast.parse(path.read_text(), filename=str(path)).body
+    if body and isinstance(body[0], ast.Expr) and isinstance(body[0].value, ast.Constant):
+        body = body[1:]
+    return [ast.dump(node) for node in body]
+
+
+@pytest.mark.parametrize("rel", ["models/lm_config.py", "configs/registry.py",
+                                 *(f"configs/{a}.py" for a in COPIED_CONFIGS)])
+def test_copied_modules_equal_their_originals(rel):
+    """The pure-Python modules the port copies (the LM config, the
+    architecture registry and its per-arch files) say what the JAX
+    package's say, statement by statement; only the docstring may differ."""
+    assert _statements(ROOT / "src" / "repro_torch" / rel) == \
+        _statements(ROOT / "src" / "repro" / rel)
 
 
 @pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(ROOT)))

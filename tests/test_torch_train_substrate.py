@@ -3,8 +3,9 @@ the train-step factory (grad accumulation, mask discipline), gradient
 compression with error feedback, checkpoints (interchangeable with the JAX
 package's in both directions), the watchdog, and the ``CnnServer``
 snapshot / warm restart built on the checkpoints. Mirrors
-``tests/test_train_substrate.py`` (minus the elastic restore, which needs
-the port of ``dist/``) and the snapshot cases of ``tests/test_resilience.py``.
+``tests/test_train_substrate.py`` (its elastic restore is twinned in
+``tests/test_torch_data_pipeline.py``, beside the port of ``dist/``) and the
+snapshot cases of ``tests/test_resilience.py``.
 
 Same numpy inputs to both; f32 results within 1e-6 (the same operations in
 the same order), checkpoint arrays equal."""
