@@ -110,8 +110,19 @@ Run ``python3 chip_smoke.py`` from the repository root. It
    sharding rules of a ``(1, 1)`` mesh bit-equal to those without,
    ``moe_manual_tp`` (a one-rank NCCL ``all_reduce``) against the CPU's, the
    params laid out by ``param_specs``, ``prefetch`` of 8 ``TokenStream``
-   batches and ``restore_elastic`` of a checkpoint onto the mesh bit-equal,
-11. prints one JSON line per phase, then the card's name and power limit, a
+   batches and ``restore_elastic`` of a checkpoint onto the mesh bit-equal;
+   ``launch/serve.py``'s loop (``serve.generate``) is what it times,
+11. runs the recurrent LM families' serving path as a ninth main path
+   (``lm_recurrent``, no kernel of this repo: each of K1-K4 must read 0
+   launches): xlstm-350m and zamba2-7b at smoke size against CPU runs
+   (logits, decode against the full forward); the SSD chunk scan against
+   its sequential oracle at zamba2-7b's head shapes (S 2048, 8 chunks) and
+   the parallel mLSTM against its recurrence at xlstm-350m's (S 256), f32;
+   xlstm-350m at full width and depth and zamba2-7b at full width with 7 of
+   its 81 layers, served in bf16 as ``launch/serve.py`` serves them and
+   checked as the transformer models are (the bound of a decode step counts
+   the state read and written), zamba2-7b also prefilled at B 1, S 2048,
+12. prints one JSON line per phase, then the card's name and power limit, a
    ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device": {...}}``.
 
 Any failing phase raises: the exit code is non-zero and no ``ok`` line is
@@ -128,9 +139,10 @@ often: ``ms`` is the device time per launch with launches queued back to
 back, ``call_ms`` one call on an idle device. ``bound_ms`` counts what the
 convolution needs (real output rows and channels); ``bound_padded_ms`` also
 counts the padded lanes and rows the kernel's output array carries.
-``launches`` sums the eight main paths (serving, training, pricing,
+``launches`` sums the nine main paths (serving, training, pricing,
 fixed point, the executed-sparsity bench, the serving bench, the paper's
-tables, the LM family), each counted from zero just before it is driven;
+tables, the transformer and the recurrent LM families), each counted from
+zero just before it is driven;
 ``launches_by_path`` splits them. K2's entry also has ``by_mode``: its int8
 (``streamed``, ``int8``) and f32 instances at the representative geometry,
 streamed at batch 1 in both layouts, each beside its bound and the cuDNN
@@ -232,6 +244,7 @@ PATH_KERNELS = {
     "serving_cnn": ("implicit_block_sparse_conv",),
     "paper_tables": ("block_sparse_matmul",),
     "lm_transformer": (),       # the LM family calls none of them: each must read 0
+    "lm_recurrent": (),         # nor do the recurrent families
 }
 
 F32_TOL = 1e-4          # f32 kernels vs plain: summation order differs
@@ -2082,15 +2095,18 @@ def import_lm_path() -> None:
     """Import the LM path's modules into this module's namespace when the
     path runs (an older tree timed under ``--baseline`` may not have them)."""
     global TREG, prefetch, TokenStream, ShardFlags, make_rules, param_specs, use_rules
-    global placements, make_host_mesh, MOE, TT, CKPT, restore_elastic
+    global placements, make_host_mesh, MOE, LM, SERVE, SSM, XL, CKPT, restore_elastic
     from repro_torch.configs import registry as TREG
     from repro_torch.data.pipeline import prefetch
     from repro_torch.data.synthetic import TokenStream
     from repro_torch.dist import ShardFlags, make_rules, param_specs, use_rules
     from repro_torch.dist.api import placements
     from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch import serve as SERVE
+    from repro_torch.models import lm as LM
     from repro_torch.models import moe as MOE
-    from repro_torch.models import transformer as TT
+    from repro_torch.models import ssm as SSM
+    from repro_torch.models import xlstm as XL
     from repro_torch.train import checkpoint as CKPT
     from repro_torch.train.elastic import restore_elastic
 
@@ -2122,7 +2138,7 @@ def rel_err(got, want) -> float:
 
 def check(label: str, value: float, bar: float) -> float:
     if not value <= bar:
-        raise AssertionError(f"lm_transformer: {label} is {value} (bar {bar})")
+        raise AssertionError(f"{label} is {value} (bar {bar})")
     return value
 
 
@@ -2136,40 +2152,42 @@ def lm_decode_vs_full(params, cfg, toks, device) -> float:
     time; the largest distance of a step's logits from the full forward's
     at that position, x max |logit|."""
     B, S = toks.shape
-    full, _, _ = TT.forward(params, {"tokens": toks}, cfg)
-    last, caches = TT.prefill(params, {"tokens": toks[:, :S // 2]}, cfg, max_len=S)
+    with torch.no_grad():
+        full, _, _ = LM.forward(params, {"tokens": toks}, cfg)
+    last, caches = LM.prefill(params, {"tokens": toks[:, :S // 2]}, cfg, max_len=S)
     errs = [rel_err(last, full[:, S // 2 - 1])]
     for t in range(S // 2, S):
-        last, caches = TT.decode_step(params, caches, toks[:, t],
+        last, caches = LM.decode_step(params, caches, toks[:, t],
                                       torch.full((B,), t, dtype=torch.int32, device=device),
                                       cfg)
         errs.append(rel_err(last, full[:, t]))
     return max(errs)
 
 
-def phase_lm_smoke(device) -> dict:
-    """The eight transformer-family architectures at smoke size (f32), the
-    same weights (drawn on the CPU from a seed) and inputs on the card and on
-    the CPU: logits and aux within ``LM_LOGIT_TOL`` x max |logit|, and
-    (dense and MoE, MoE at drop-free capacity) decode against the full
-    forward on the card within ``LM_DECODE_TOL``."""
+def phase_lm_smoke(device, archs, path: str) -> dict:
+    """``archs`` at smoke size (f32), the same weights (drawn on the CPU
+    from a seed) and inputs on the card and on the CPU: logits and aux
+    within ``LM_LOGIT_TOL`` x max |logit|, and (all but the VLM and audio
+    families, MoE at drop-free capacity) decode against the full forward
+    on the card within ``LM_DECODE_TOL``."""
     out = {}
     cpu = torch.device("cpu")
-    for i, arch in enumerate(LM_ARCHS):
+    for i, arch in enumerate(archs):
         cfg = TREG.get(arch).smoke
-        params = TT.init(100 + i, cfg, device=cpu)
+        params = LM.init(100 + i, cfg, device=cpu)
         card = tree_map(lambda t: t.to(device), params)
         b = lm_batch(cfg, 2, 16, 200 + i)
-        lc, _, ac = TT.forward(card, on(b, device), cfg)
-        lh, _, ah = TT.forward(params, on(b, cpu), cfg)
-        row = {"logits_vs_cpu": check(f"{arch} smoke logits vs CPU", rel_err(lc, lh),
+        with torch.no_grad():
+            lc, _, ac = LM.forward(card, on(b, device), cfg)
+            lh, _, ah = LM.forward(params, on(b, cpu), cfg)
+        row = {"logits_vs_cpu": check(f"{path}: {arch} smoke logits vs CPU", rel_err(lc, lh),
                                       LM_LOGIT_TOL),
-               "aux_vs_cpu": check(f"{arch} smoke aux vs CPU", abs(float(ac) - float(ah)),
-                                   1e-5)}
-        if cfg.family in ("dense", "moe"):
+               "aux_vs_cpu": check(f"{path}: {arch} smoke aux vs CPU",
+                                   abs(float(ac) - float(ah)), 1e-5)}
+        if cfg.family not in ("vlm", "audio"):
             dcfg = lm_drop_free(cfg)
             toks = torch.from_numpy(lm_batch(dcfg, 2, 16, 300 + i)["tokens"]).to(device)
-            row["decode_vs_full"] = check(f"{arch} smoke decode vs full",
+            row["decode_vs_full"] = check(f"{path}: {arch} smoke decode vs full",
                                           lm_decode_vs_full(card, dcfg, toks, device),
                                           LM_DECODE_TOL)
         out[arch] = row
@@ -2183,59 +2201,58 @@ def lm_step_device_ms(fn, device, calls: int = 10) -> dict:
     ``calls`` times that many (``profile_device_records`` fences a window;
     the profiler still loses or borrows records now and then), else it is
     opened again, ``PROFILER_RETRIES`` times at most; past that the time is
-    not measured (``None``)."""
+    not measured (``None``). ``top``: the five kernels that take the most
+    of it (ms and launches a step)."""
     fn()
     sync(device)
     counts = [sum(n for _, n in kernels.profile_device_records(fn, 1, device).records.values())
               for _ in range(5)]
     per_step = statistics.mode(counts)
+    top = None
     for short in range(PROFILER_RETRIES + 1):
         recs = kernels.profile_device_records(fn, calls, device).records
         n = sum(c for _, c in recs.values())
         if n == calls * per_step:
             ms = sum(us for us, _ in recs.values()) / 1e3 / calls
+            top = [{"kernel": k[:90], "ms": us / 1e3 / calls, "launches": c / calls}
+                   for k, (us, c) in sorted(recs.items(), key=lambda kv: -kv[1][0])[:5]]
             break
         time.sleep(PROFILER_RETRY_PAUSE_S * 2 ** short)
     else:
         ms = None
     return {"device_ms": ms, "records_per_step": per_step, "one_step_records": counts,
-            "records": n, "steps": calls, "short_sessions": short}
+            "records": n, "steps": calls, "short_sessions": short, "top": top}
 
 
 def lm_serve(params, cfg, prompts, device) -> dict:
-    """``launch/serve.py``'s loop: prefill the prompts, then greedy decode
-    ``LM_SERVE[2] - 1`` steps, timed with CUDA events (a warm run first).
-    Returns the times, the generated tokens and the prefill's caches."""
+    """``launch/serve.py``'s loop (``serve.generate``): prefill the prompts,
+    then greedy decode ``LM_SERVE[2] - 1`` steps, timed with CUDA events at
+    its marks (a warm run first); then the profiled device time of the step
+    after the last. Returns the times and the generated tokens."""
     B, P = prompts.shape
     T = LM_SERVE[2]
 
     def run():
-        ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
-        ev[0].record()
-        logits, caches = TT.prefill(params, {"tokens": prompts}, cfg, max_len=P + T)
-        ev[1].record()
-        tok = torch.argmax(logits, -1).to(torch.int32)
-        out = [tok]
-        c = caches
-        for i in range(T - 1):
-            logits, c = TT.decode_step(params, c, tok,
-                                       torch.full((B,), P + i, dtype=torch.int32,
-                                                  device=device), cfg)
-            tok = torch.argmax(logits, -1).to(torch.int32)
-            out.append(tok)
-        ev[2].record()
-        ev[2].synchronize()
-        return ev, torch.stack(out, 1), caches, tok
+        ev = {}
+
+        def mark(phase):
+            ev[phase] = torch.cuda.Event(enable_timing=True)
+            ev[phase].record()
+
+        tokens, caches = SERVE.generate(params, cfg, prompts, T, mark=mark)
+        ev["decode"].synchronize()
+        return ev, tokens, caches
 
     run()
-    ev, tokens, caches, tok = run()
-    decode_ms = ev[1].elapsed_time(ev[2])
-    step = lambda: TT.decode_step(params, caches, tok,
-                                  torch.full((B,), P, dtype=torch.int32, device=device), cfg)
-    return {"prefill_ms": ev[0].elapsed_time(ev[1]),
+    ev, tokens, caches = run()
+    decode_ms = ev["prefill"].elapsed_time(ev["decode"])
+    tok, pos = tokens[:, -1], torch.full((B,), P + T - 1, dtype=torch.int32, device=device)
+    step = lambda: LM.decode_step(params, caches, tok, pos, cfg)
+    return {"prefill_ms": ev["start"].elapsed_time(ev["prefill"]),
             "decode_ms_per_token": decode_ms / (T - 1),
             "tokens_per_s": B * (T - 1) / (decode_ms / 1e3),
             "decode_step_profiler": lm_step_device_ms(step, device),
+            "state_bytes": lm_bytes(caches),
             "peak_gb": torch.cuda.max_memory_allocated(device) / 1e9,
             "_tokens": tokens}
 
@@ -2253,7 +2270,7 @@ def lm_dropped_share(params, cfg, prompts, max_len) -> dict:
 
     MOE.route = recording
     try:
-        TT.prefill(params, {"tokens": prompts}, cfg, max_len=max_len)
+        LM.prefill(params, {"tokens": prompts}, cfg, max_len=max_len)
     finally:
         MOE.route = route
     dropped, pairs = sum(d for d, _, _ in seen), sum(n for _, n, _ in seen)
@@ -2261,28 +2278,37 @@ def lm_dropped_share(params, cfg, prompts, max_len) -> dict:
             "capacity_per_expert": seen[0][2], "by_layer": [d / n for d, n, _ in seen]}
 
 
-def lm_bytes(params) -> int:
-    return sum(t.numel() * t.element_size() for t in tree_leaves(params))
+def lm_bytes(tree) -> int:
+    return sum(t.numel() * t.element_size() for t in tree_leaves(tree))
 
 
-def phase_lm_full(arch, device, card, mesh):
-    """One full-width model with ``LM_LAYERS`` layers: bf16 serving
-    (prefill, greedy decode) timed; the f32 copy's prefill logits against
-    the port's CPU run; f32 decode against the f32 full forward on the card;
-    bf16 logits and greedy tokens against f32; (dense) the chunked attention
-    at ``LM_CHUNK_S`` against dense; (MoE) the share of dropped pairs; the
-    bf16 prefill under ``(1, 1)`` rules bit-equal to it without; (MoE) the
-    ``moe_manual_tp`` branch against the CPU port's; the params laid out by
-    ``param_specs`` bit-equal. Returns (its line, the f32 params)."""
+def lm_cast(p32, cfg):
+    """The f32 weights ``p32`` in the dtypes ``lm.init`` gives ``cfg``:
+    ``cfg.dtype``, but f32 MoE routers and Mamba ``A_log``, ``D``, ``dt_bias``."""
+    dtypes = dict((path, t.dtype) for path, t in
+                  tree_flatten_with_path(LM.init(None, cfg, device="meta")))
+    return tree_map_with_path(lambda path, t: t.to(dtypes[path]), p32)
+
+
+def phase_lm_full(arch, cfg, device, card, mesh, path: str):
+    """One full-width model (``cfg``, cut in depth only): bf16 serving
+    (prefill, greedy decode) timed, a decode step's device time beside its
+    bytes bound (the weights, and the caches read and written); the f32
+    copy's prefill logits against the port's CPU run; f32 decode against
+    the f32 full forward on the card; bf16 logits and greedy tokens against
+    f32 (held for the dense family only); (dense) the chunked attention at
+    ``LM_CHUNK_S`` against dense; (MoE) the share of dropped pairs;
+    (hybrid) a bf16 prefill of 1 x ``LM_CHUNK_S`` timed and checked finite;
+    the bf16 prefill under ``(1, 1)`` rules bit-equal to it without; (MoE)
+    the ``moe_manual_tp`` branch against the CPU port's; the params laid out
+    by ``param_specs`` bit-equal. Returns (its line, the f32 params)."""
     full = TREG.get(arch).config
-    cfg = dataclasses.replace(full, num_layers=LM_LAYERS)
     cfg32 = dataclasses.replace(cfg, dtype="float32")
     B, P, T = LM_SERVE
     torch.cuda.reset_peak_memory_stats(device)
     t0 = time.time()
-    p32 = TT.init(7, cfg32, device=device)
-    pbf = tree_map_with_path(
-        lambda path, t: t if path[-1] == "router" else t.to(torch.bfloat16), p32)
+    p32 = LM.init(7, cfg32, device=device)
+    pbf = lm_cast(p32, cfg)
     prompts = torch.from_numpy(np.random.RandomState(11).randint(
         0, cfg.vocab_size, (B, P)).astype(np.int32)).to(device)
     init_s = time.time() - t0
@@ -2290,60 +2316,69 @@ def phase_lm_full(arch, device, card, mesh):
     serve = lm_serve(pbf, cfg, prompts, device)
     serve32 = lm_serve(p32, cfg32, prompts, device)
     tokens_bf, tokens_32 = serve.pop("_tokens"), serve32.pop("_tokens")
+    for s in (serve, serve32):
+        s["weight_bytes"] = lm_bytes(pbf if s is serve else p32)
+        s["step_bound_ms"] = (s["weight_bytes"] + 2 * s["state_bytes"]) / PEAK_BYTES_S * 1e3
 
     # f32 prefill: card against the port's CPU run on the same weights
     cpu = torch.device("cpu")
-    caches = lambda dev: TT.init_caches(cfg32, B, P + T, device=dev)
-    l32, _, _ = TT.forward(p32, {"tokens": prompts}, cfg32, caches=caches(device))
-    t0 = time.time()
-    p32_cpu = tree_map(lambda t: t.cpu(), p32)
-    lcpu, _, _ = TT.forward(p32_cpu, {"tokens": prompts.cpu()}, cfg32, caches=caches(cpu))
+    caches = lambda dev: LM.init_caches(cfg32, B, P + T, device=dev)
+    with torch.no_grad():
+        l32, _, _ = LM.forward(p32, {"tokens": prompts}, cfg32, caches=caches(device))
+        t0 = time.time()
+        p32_cpu = tree_map(lambda t: t.cpu(), p32)
+        lcpu, _, _ = LM.forward(p32_cpu, {"tokens": prompts.cpu()}, cfg32, caches=caches(cpu))
     cpu_s = time.time() - t0
-    row = {"config": {**dataclasses.asdict(cfg), "cut": f"{LM_LAYERS} of {full.num_layers} "
-                      f"layers"},
+    row = {"config": {**dataclasses.asdict(cfg), "cut": f"{cfg.num_layers} of "
+                      f"{full.num_layers} layers"},
            "params": sum(t.numel() for t in tree_leaves(p32)),
            "bf16_bytes": lm_bytes(pbf), "f32_bytes": lm_bytes(p32), "init_s": init_s,
            "bf16": serve, "f32": serve32,
-           "f32_prefill_vs_cpu": check(f"{arch} f32 prefill vs CPU", rel_err(l32, lcpu),
-                                       LM_LOGIT_TOL),
+           "f32_prefill_vs_cpu": check(f"{path}: {arch} f32 prefill vs CPU",
+                                       rel_err(l32, lcpu), LM_LOGIT_TOL),
            "cpu_prefill_s": cpu_s}
     del p32_cpu, lcpu
 
     dcfg = lm_drop_free(cfg32)
-    row["f32_decode_vs_full"] = check(f"{arch} f32 decode vs full", lm_decode_vs_full(
+    row["f32_decode_vs_full"] = check(f"{path}: {arch} f32 decode vs full", lm_decode_vs_full(
         p32, dcfg, prompts, device), LM_DECODE_TOL)
-    lbf, _, _ = TT.forward(pbf, {"tokens": prompts}, cfg, caches=TT.init_caches(
-        cfg, B, P + T, device=device))
-    # held for the dense model; MoE's is recorded only: a token whose router
-    # picks another expert in bf16 than in f32 takes other weights altogether
+    with torch.no_grad():
+        lbf, _, _ = LM.forward(pbf, {"tokens": prompts}, cfg, caches=LM.init_caches(
+            cfg, B, P + T, device=device))
+    # held for the dense model; MoE's is recorded only (a token whose router
+    # picks another expert in bf16 than in f32 takes other weights
+    # altogether), and so are the recurrent families' (no bar yet for a
+    # deep recurrence in bf16)
     row["bf16_vs_f32_logits"] = rel_err(lbf, l32)
-    if cfg.family != "moe":
-        check(f"{arch} bf16 vs f32 logits", row["bf16_vs_f32_logits"], LM_BF16_TOL)
+    if cfg.family == "dense":
+        check(f"{path}: {arch} bf16 vs f32 logits", row["bf16_vs_f32_logits"], LM_BF16_TOL)
     row["bf16_vs_f32_argmax_agree"] = float((lbf.argmax(-1) == l32.argmax(-1)).float().mean())
     row["greedy_tokens_agree"] = float((tokens_bf == tokens_32).float().mean())
 
     if cfg.family == "moe":
         row["prefill_dropped"] = lm_dropped_share(pbf, cfg, prompts, P + T)
-    else:
+    elif cfg.family == "dense":
         x = torch.from_numpy(np.random.RandomState(13).randint(
             0, cfg.vocab_size, (1, LM_CHUNK_S)).astype(np.int32)).to(device)
         assert cfg32.attn_impl == "chunked" and LM_CHUNK_S > cfg32.attn_chunk
         with torch.no_grad():
-            chunked, _, _ = TT.forward(p32, {"tokens": x}, cfg32)
-            dense, _, _ = TT.forward(p32, {"tokens": x},
+            chunked, _, _ = LM.forward(p32, {"tokens": x}, cfg32)
+            dense, _, _ = LM.forward(p32, {"tokens": x},
                                      dataclasses.replace(cfg32, attn_impl="dense"))
         row["chunked_vs_dense"] = {"S": LM_CHUNK_S, "chunk": cfg32.attn_chunk,
-                                   "err": check(f"{arch} chunked vs dense attention",
+                                   "err": check(f"{path}: {arch} chunked vs dense attention",
                                                 rel_err(chunked, dense), LM_LOGIT_TOL)}
         del chunked, dense
+    elif cfg.family == "hybrid":
+        row["bf16_prefill_long"] = lm_long_prefill(pbf, cfg, device)
 
     # under the rules of a (1, 1) mesh: constrain changes nothing
     rules = make_rules(mesh, "serve")
-    plain, _ = TT.prefill(pbf, {"tokens": prompts}, cfg, max_len=P + T)
+    plain, _ = LM.prefill(pbf, {"tokens": prompts}, cfg, max_len=P + T)
     with use_rules(rules):
-        ruled, _ = TT.prefill(pbf, {"tokens": prompts}, cfg, max_len=P + T)
+        ruled, _ = LM.prefill(pbf, {"tokens": prompts}, cfg, max_len=P + T)
     if not torch.equal(ruled, plain):
-        raise AssertionError(f"lm_transformer: {arch} logits under (1, 1) rules differ "
+        raise AssertionError(f"{path}: {arch} logits under (1, 1) rules differ "
                              f"by {float((ruled - plain).abs().max())}")
     row["rules_bit_equal"] = True
     if cfg.family == "moe":
@@ -2354,12 +2389,31 @@ def phase_lm_full(arch, device, card, mesh):
     laid = tree_map(lambda t, s: distribute_tensor(t, mesh, placements(s, mesh)), pbf, specs)
     if not all(torch.equal(d.full_tensor(), t) for d, t in zip(tree_leaves(laid),
                                                                  tree_leaves(pbf))):
-        raise AssertionError(f"lm_transformer: {arch} params laid out by param_specs differ")
+        raise AssertionError(f"{path}: {arch} params laid out by param_specs differ")
     row["param_specs_full_tensor_bit_equal"] = True
     del laid
     row["peak_gb"] = torch.cuda.max_memory_allocated(device) / 1e9
     row["card"] = card
     return row, p32
+
+
+def lm_long_prefill(params, cfg, device) -> dict:
+    """A bf16 prefill of one row of ``LM_CHUNK_S`` tokens (the SSD scan over
+    ``LM_CHUNK_S / ssm_chunk`` chunks), timed with CUDA events after a warm
+    run; its last logits must be finite."""
+    x = torch.from_numpy(np.random.RandomState(17).randint(
+        0, cfg.vocab_size, (1, LM_CHUNK_S)).astype(np.int32)).to(device)
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    LM.prefill(params, {"tokens": x}, cfg)
+    ev[0].record()
+    last, _ = LM.prefill(params, {"tokens": x}, cfg)
+    ev[1].record()
+    ev[1].synchronize()
+    if not bool(torch.isfinite(last).all()):
+        raise AssertionError(f"lm_recurrent: {cfg.name} bf16 prefill of {LM_CHUNK_S} "
+                             f"tokens is not finite")
+    return {"S": LM_CHUNK_S, "chunks": LM_CHUNK_S // cfg.ssm_chunk,
+            "ms": ev[0].elapsed_time(ev[1]), "finite": True}
 
 
 def lm_manual_tp(p32, cfg32, pbf, cfg, prompts, mesh) -> dict:
@@ -2371,7 +2425,7 @@ def lm_manual_tp(p32, cfg32, pbf, cfg, prompts, mesh) -> dict:
     path's bf16 ones (recorded)."""
     flags = ShardFlags(moe_manual_tp=True)
     B, P, T = LM_SERVE
-    prefill = lambda params, c, toks: TT.prefill(params, {"tokens": toks}, c,
+    prefill = lambda params, c, toks: LM.prefill(params, {"tokens": toks}, c,
                                                  max_len=P + T)[0]
     with use_rules(make_rules(mesh, "serve", flags)):
         got, bf_manual = prefill(p32, cfg32, prompts), prefill(pbf, cfg, prompts)
@@ -2427,10 +2481,11 @@ def phase_lm_transformer(card, device) -> dict:
     t0 = time.time()
     mesh = make_host_mesh()
     kernels.reset_launch_counts()
-    smoke = phase_lm_smoke(device)
+    smoke = phase_lm_smoke(device, LM_ARCHS, "lm_transformer")
     rows, p32 = {}, {}
     for arch in LM_FULL:
-        rows[arch], p = phase_lm_full(arch, device, card, mesh)
+        cfg = dataclasses.replace(TREG.get(arch).config, num_layers=LM_LAYERS)
+        rows[arch], p = phase_lm_full(arch, cfg, device, card, mesh, "lm_transformer")
         if arch == "granite-moe-3b-a800m":
             p32[arch] = p
         del p
@@ -2443,6 +2498,98 @@ def phase_lm_transformer(card, device) -> dict:
          mesh={"shape": list(mesh.shape), "names": list(mesh.mesh_dim_names),
                "backend": torch.distributed.get_backend()},
          smoke=smoke, **rows)
+    return launched
+
+
+# ---------------------------------------------------------------------------
+# main path 9: the recurrent LM families (xLSTM, the Zamba-2 hybrid)
+# ---------------------------------------------------------------------------
+
+LM_RECURRENT = ("xlstm-350m", "zamba2-7b")
+# the one cut: zamba2-7b keeps 7 of its 81 layers (one super-block of 6
+# Mamba-2 layers and the shared attention, then one tail layer); xlstm-350m
+# runs at full depth
+LM_RECURRENT_LAYERS = {"xlstm-350m": None, "zamba2-7b": 7}
+LM_MECH_TOL = 1e-4      # chunked/parallel form vs its recurrence, x max |out| (f32)
+LM_SSD_SHAPE = (1, 2048)     # B, S of the SSD check: 8 chunks of zamba2's 256
+LM_MLSTM_S = 256
+
+
+def phase_lm_mechanisms(device) -> dict:
+    """The two recurrences at full width on the card (f32, inputs from a
+    numpy seed): ``ssd_chunked`` against the sequential ``ssd_reference`` at
+    zamba2-7b's head shapes, A from ``mamba_init``'s ``A_log``; and
+    ``mlstm_parallel`` against the stepwise ``mlstm_step`` at xlstm-350m's.
+    Each within ``LM_MECH_TOL`` x max |out|, with its time."""
+    zcfg, xcfg = TREG.get("zamba2-7b").config, TREG.get("xlstm-350m").config
+    rs = np.random.RandomState(19)
+    dev = lambda a: torch.from_numpy(a.astype(np.float32)).to(device)
+    B, S = LM_SSD_SHAPE
+    H, P, G, N = zcfg.ssm_heads, zcfg.ssm_head_dim, zcfg.ssm_groups, zcfg.ssm_state
+    x = dev(rs.randn(B, S, H, P))
+    dt = F.softplus(dev(rs.randn(B, S, H)))
+    A = -torch.exp(torch.log(torch.linspace(1.0, 16.0, H, device=device)))
+    Bm, Cm = dev(rs.randn(B, S, G, N)), dev(rs.randn(B, S, G, N))
+    t0 = time.time()
+    with torch.no_grad():
+        y, st = SSM.ssd_chunked(x, dt, A, Bm, Cm, zcfg.ssm_chunk)
+        sync(device)
+        chunked_s = time.time() - t0
+        yr, sr = SSM.ssd_reference(x, dt, A, Bm, Cm)
+    ssd = {"B": B, "S": S, "H": H, "P": P, "G": G, "N": N, "chunk": zcfg.ssm_chunk,
+           "out": check("lm_recurrent: ssd_chunked vs ssd_reference", rel_err(y, yr),
+                        LM_MECH_TOL),
+           "state": check("lm_recurrent: ssd_chunked state vs ssd_reference", rel_err(st, sr),
+                          LM_MECH_TOL),
+           "chunked_s": chunked_s, "s": time.time() - t0}
+    del x, y, yr
+    di = int(xcfg.xlstm_proj_factor * xcfg.d_model)
+    H, hd, S = xcfg.num_heads, di // xcfg.num_heads, LM_MLSTM_S
+    q, k, v = (dev(rs.randn(1, S, H, hd)) for _ in range(3))
+    ig, fg = dev(rs.randn(1, S, H)), dev(rs.randn(1, S, H) + 1.0)
+    t0 = time.time()
+    with torch.no_grad():
+        hp = XL.mlstm_parallel(q, k, v, ig, fg)
+        st = {"C": torch.zeros((1, H, hd, hd), device=device),
+              "n": torch.zeros((1, H, hd), device=device), "m": torch.zeros((1, H), device=device)}
+        outs = []
+        for t in range(S):
+            st, h = XL.mlstm_step(st, q[:, t], k[:, t], v[:, t], ig[:, t], fg[:, t])
+            outs.append(h)
+        hs = torch.stack(outs, 1)
+    mlstm = {"S": S, "H": H, "hd": hd,
+             "out": check("lm_recurrent: mlstm_parallel vs mlstm_step", rel_err(hp, hs),
+                          LM_MECH_TOL),
+             "s": time.time() - t0}
+    return {"ssd": ssd, "mlstm": mlstm}
+
+
+def phase_lm_recurrent(card, device) -> dict:
+    """The ninth main path: the recurrent LM families' serving path (the
+    two smoke configs against CPU runs, the two recurrences at full width,
+    xlstm-350m and zamba2-7b served at full width), with the launch counts
+    of K1-K4 set to 0 just before and read just after (each must read 0).
+    Returns them."""
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("lm_recurrent: an earlier phase left TF32 matmuls on")
+    import_lm_path()
+    t0 = time.time()
+    mesh = make_host_mesh()
+    kernels.reset_launch_counts()
+    smoke = phase_lm_smoke(device, LM_RECURRENT, "lm_recurrent")
+    mechanisms = phase_lm_mechanisms(device)
+    rows = {}
+    for arch in LM_RECURRENT:
+        cfg = TREG.get(arch).config
+        if LM_RECURRENT_LAYERS[arch]:
+            cfg = dataclasses.replace(cfg, num_layers=LM_RECURRENT_LAYERS[arch])
+        rows[arch], _ = phase_lm_full(arch, cfg, device, card, mesh, "lm_recurrent")
+    launched = kernels.launch_counts()
+    if any(launched.values()):
+        raise AssertionError(f"lm_recurrent: the LM path launched this repo's kernels "
+                             f"{launched}")
+    emit("lm_recurrent", card=card, seconds=time.time() - t0, launches=launched,
+         smoke=smoke, mechanisms=mechanisms, **rows)
     return launched
 
 
@@ -2635,9 +2782,14 @@ def main(argv=None) -> int:
 
     # ---- main path 8, the transformer LM family at full width (counts reset
     # inside, just before it runs; each of the four must read 0 after it)
-    if not args.baseline or os.path.exists(os.path.join(ROOT, "src", "repro_torch", "models",
-                                                        "transformer.py")):
+    lm_front = os.path.join(ROOT, "src", "repro_torch", "models", "lm.py")
+    if not args.baseline or os.path.exists(lm_front):
         paths["lm_transformer"] = phase_lm_transformer(card, device)
+
+    # ---- main path 9, the recurrent LM families at full width (counts reset
+    # inside, just before it runs; each of the four must read 0 after it)
+    if not args.baseline or os.path.exists(lm_front):
+        paths["lm_recurrent"] = phase_lm_recurrent(card, device)
 
     for path, counts in paths.items():
         for kname in PATH_KERNELS[path]:

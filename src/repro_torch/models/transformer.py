@@ -9,12 +9,11 @@ stacked parameter tree per homogeneous layer stack:
 Params are nested dicts of tensors whose stacked leaves carry the layer
 as their leading dim, as in the JAX package, so ``dist.param_specs`` maps
 one to one and JAX's weights carry across with no reshaping
-(``params_from_numpy``). ``forward`` loops over the stack in Python,
+(``lm.params_from_numpy``). ``forward`` loops over the stack in Python,
 indexing the layer, where the JAX package runs ``lax.scan``; ``cfg.remat``
-(rematerialization in training) has no effect on it.
-
-``prefill`` and ``decode_step`` are the serving entry points of the
-transformer families (the JAX package's ``lm.prefill``/``lm.decode_step``).
+(rematerialization in training) has no effect on it. The serving entry
+points (``prefill``, ``decode_step``) are ``models/lm.py``'s, as in the JAX
+package.
 """
 from __future__ import annotations
 
@@ -43,6 +42,14 @@ def _stack(trees: list) -> PyTree:
 
 def _layer(stacked: PyTree, i: int) -> PyTree:
     return tree_map(lambda t: t[i], stacked)
+
+
+def generator(seed, dev: torch.device):
+    """``seed`` (an int or a ``torch.Generator``) as a generator on ``dev``;
+    on the meta device nothing is drawn."""
+    if isinstance(seed, torch.Generator) or dev.type == "meta":
+        return seed
+    return torch.Generator(device=dev).manual_seed(int(seed))
 
 
 def stack_init(layer_init, gen, n: int, *args, **kw):
@@ -94,10 +101,7 @@ def init(seed: Union[int, torch.Generator], cfg: LMConfig, device=None) -> PyTre
     (an int or a ``torch.Generator``). On the meta device: the tree's
     shapes and dtypes only."""
     dev = resolve_device(device)
-    if isinstance(seed, torch.Generator) or dev.type == "meta":
-        gen = seed
-    else:
-        gen = torch.Generator(device=dev).manual_seed(int(seed))
+    gen = generator(seed, dev)
     dt = _dtype(cfg)
     params: dict = {
         "embed": (L.normal(gen, (cfg.vocab_size, cfg.d_model), dev) * 0.02).to(dt),
@@ -114,20 +118,6 @@ def init(seed: Union[int, torch.Generator], cfg: LMConfig, device=None) -> PyTre
     if not cfg.tie_embeddings:
         params["head"] = L.dense_init(gen, cfg.d_model, cfg.vocab_size, dt, device=dev)
     return params
-
-
-def params_from_numpy(tree_np: PyTree, cfg: LMConfig, device=None) -> PyTree:
-    """The JAX package's weights (``np.asarray`` of the leaves of its
-    ``transformer.init``) as tensors on ``device``: every leaf in
-    ``cfg.dtype`` but the MoE routers, which stay f32 as JAX draws them."""
-    dev = resolve_device(device)
-    dt = _dtype(cfg)
-
-    def f(path, a):
-        t = torch.from_numpy(np.array(a, dtype=np.float32))
-        return t.to(device=dev, dtype=torch.float32 if path[-1] == "router" else dt)
-
-    return tree_map_with_path(f, tree_np)
 
 
 # ---------------------------------------------------------------------------
@@ -238,35 +228,3 @@ def init_caches(cfg: LMConfig, batch: int, max_len: int, device=None) -> PyTree:
         }
     length = max_len if cfg.sliding_window is None else min(cfg.sliding_window, max_len)
     return stacked(cfg.num_layers, length)
-
-
-# ---------------------------------------------------------------------------
-# Serving entry points
-# ---------------------------------------------------------------------------
-
-def _batch_device(batch: dict) -> torch.device:
-    return next(v for v in batch.values() if v is not None).device
-
-
-@torch.no_grad()
-def prefill(params, batch, cfg: LMConfig, max_len: Optional[int] = None):
-    """Populate caches for ``batch["tokens"]`` ((B,S)); returns
-    (last_logits (B,V), caches). The caches live on the batch's device."""
-    tokens = batch.get("tokens")
-    B = (tokens if tokens is not None else batch["embeds"]).shape[0]
-    S = (tokens.shape[1] if tokens is not None else batch["embeds"].shape[1])
-    if batch.get("embeds") is not None and tokens is not None:
-        S = S + batch["embeds"].shape[1]
-    caches = init_caches(cfg, B, max_len or S, device=_batch_device(batch))
-    logits, caches, _ = forward(params, batch, cfg, caches=caches)
-    return logits[:, -1], caches
-
-
-@torch.no_grad()
-def decode_step(params, caches, token, pos, cfg: LMConfig):
-    """One token step. token: (B,) int; pos: (B,) int absolute position.
-    Returns (logits (B,V), caches')."""
-    batch = {"tokens": token[:, None]}
-    logits, caches, _ = forward(params, batch, cfg, caches=caches,
-                                positions=pos[:, None])
-    return logits[:, -1], caches

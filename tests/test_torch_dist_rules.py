@@ -7,8 +7,9 @@ spec derivers ``param_specs`` / ``batch_specs`` / ``cache_specs`` /
 Twins of the 18 tests of ``tests/test_dist_rules.py`` and of the four
 ``dist`` tests of ``tests/test_data_sharding.py`` (same inputs, same
 expected specs), on the port's ``(1, 1)`` mesh over a one-rank gloo group.
-Then the port's specs against the JAX package's, entry by entry, for the
-eight transformer-family configs (full and smoke size) on three meshes
+Then the port's specs against the JAX package's, entry by entry, for all
+ten configs, the recurrent families' trees and states included (full and
+smoke size) on three meshes
 (``(1, 1)``, 16 x 16 and 2 x 16 x 16, the last two shapes only) under
 every ``ShardFlags`` toggle; and the port's own additions: the DTensor
 placements of a spec, and ``constrain`` on a DTensor."""
@@ -22,7 +23,7 @@ from jax.sharding import PartitionSpec as JP
 from repro.configs import registry as JR
 from repro.dist import sharding as JSH
 from repro.dist.compat import make_mesh
-from repro.models import transformer as JT
+from repro.models import lm as JLM
 from repro_torch.configs import registry as TR
 from repro_torch.core.masks import tree_flatten_with_path
 from repro_torch.dist.api import (NamedSharding, P, ShardingRules, axes_size, constrain,
@@ -30,7 +31,7 @@ from repro_torch.dist.api import (NamedSharding, P, ShardingRules, axes_size, co
 from repro_torch.dist.sharding import (ShardFlags, batch_specs, cache_specs, make_rules,
                                        param_specs, to_shardings)
 from repro_torch.launch.mesh import make_host_mesh
-from repro_torch.models import transformer as TT
+from repro_torch.models import lm as LM
 
 
 @pytest.fixture(scope="module")
@@ -248,7 +249,7 @@ def test_constrain_noop_without_rules():
 
 def test_param_specs_patterns():
     cfg = TR.get("qwen3-32b").smoke
-    params = TT.init(None, cfg, device="meta")
+    params = LM.init(None, cfg, device="meta")
     rules = make_rules(_mesh(), "train", ShardFlags())
     specs = param_specs(params, rules)
     # embedding: vocab over model, fsdp over data — but smoke dims don't divide,
@@ -264,7 +265,7 @@ def test_param_specs_full_config_divisible():
                                                "ffn": "model", "vocab": "model",
                                                "fsdp": "data"})
     cfg = TR.get("qwen3-32b").config
-    specs = param_specs(TT.init(None, cfg, device="meta"), rules)
+    specs = param_specs(LM.init(None, cfg, device="meta"), rules)
     blk = specs["blocks"]
     # col-parallel: (L, D, H*hd) -> (None, fsdp, model); sizes divide at 16x16
     assert blk["attn"]["wq"] == P(None, "data", "model")
@@ -289,8 +290,7 @@ class FakeMesh2x16:
     axis_names = ("pod", "data", "model")
 
 
-TRANSFORMER_ARCHS = sorted(a for a, e in JR.REGISTRY.items()
-                           if e.smoke.family not in ("ssm", "hybrid"))
+ALL_ARCHS = sorted(JR.REGISTRY)
 FLAG_SETS = [{}, {"fsdp": False}, {"tp": False}, {"sp": True}, {"state_shard": True},
              {"moe_manual_tp": True}, {"opt_bf16": True}]
 _SHAPES: dict = {}
@@ -302,10 +302,10 @@ def _trees(arch, smoke):
     if key not in _SHAPES:
         cj, ct = (getattr(R.get(arch), "smoke" if smoke else "config") for R in (JR, TR))
         B, S = (4, 16) if smoke else (64, 512)
-        jp = jax.eval_shape(lambda: JT.init(jax.random.PRNGKey(0), cj))
-        jc = jax.eval_shape(lambda: JT.init_caches(cj, B, S))
-        tp = TT.init(None, ct, device="meta")
-        tc = TT.init_caches(ct, B, S, device="meta")
+        jp = jax.eval_shape(lambda: JLM.init(jax.random.PRNGKey(0), cj))
+        jc = jax.eval_shape(lambda: JLM.init_caches(cj, B, S))
+        tp = LM.init(None, ct, device="meta")
+        tc = LM.init_caches(ct, B, S, device="meta")
         emb = cj.num_prefix_tokens if cj.family == "vlm" else S
         jb = {"tokens": jax.ShapeDtypeStruct((B, S), jnp.int32),
               "targets": jax.ShapeDtypeStruct((B, S), jnp.int32),
@@ -340,7 +340,7 @@ def _flat_port(tree):
 
 @pytest.mark.parametrize("mesh_name", ["1x1", "16x16", "2x16x16"])
 @pytest.mark.parametrize("smoke", [True, False], ids=["smoke", "full"])
-@pytest.mark.parametrize("arch", TRANSFORMER_ARCHS)
+@pytest.mark.parametrize("arch", ALL_ARCHS)
 def test_specs_equal_jax_entry_by_entry(mesh, arch, smoke, mesh_name):
     meshes = {"1x1": (make_mesh((1, 1), ("data", "model")), mesh),
               "16x16": (FakeMesh16, FakeMesh16), "2x16x16": (FakeMesh2x16, FakeMesh2x16)}

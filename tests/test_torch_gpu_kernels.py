@@ -1220,6 +1220,34 @@ def test_lm_smoke_forward_and_prefill_on_the_card_match_the_cpu(dev, arch):
         assert abs(float(ac) - float(ah)) <= 1e-5
 
 
+@pytest.mark.parametrize("arch", ["xlstm-350m", "zamba2-7b"])
+def test_lm_recurrent_smoke_on_the_card_matches_the_cpu(dev, arch):
+    """The recurrent families' smoke configs (f32, TF32 off) through the
+    front door: the same weights and inputs on the card and on the CPU,
+    logits within 1e-4 of the largest |logit| — the plain forward, a prefill
+    through caches, and four decode steps after it."""
+    from repro_torch.configs import registry
+    from repro_torch.core.masks import tree_map
+    from repro_torch.models import lm as LM
+    assert not torch.backends.cuda.matmul.allow_tf32
+    cfg = registry.get(arch).smoke
+    params = LM.init(3, cfg, device="cpu")
+    card = tree_map(lambda t: t.to(dev), params)
+    toks = torch.from_numpy(_lm_batch(cfg, 2, 20, 5)["tokens"])
+    for caches in (False, True):
+        kw = lambda d: {"caches": LM.init_caches(cfg, 2, 20, device=d)} if caches else {}
+        lc, _, _ = LM.forward(card, {"tokens": toks[:, :16].to(dev)}, cfg, **kw(dev))
+        lh, _, _ = LM.forward(params, {"tokens": toks[:, :16]}, cfg, **kw("cpu"))
+        assert float((lc.cpu() - lh).abs().max()) <= 1e-4 * float(lh.abs().max())
+    _, cc = LM.prefill(card, {"tokens": toks[:, :16].to(dev)}, cfg, max_len=20)
+    _, ch = LM.prefill(params, {"tokens": toks[:, :16]}, cfg, max_len=20)
+    for t in range(16, 20):
+        pos = torch.full((2,), t, dtype=torch.int32)
+        lc, cc = LM.decode_step(card, cc, toks[:, t].to(dev), pos.to(dev), cfg)
+        lh, ch = LM.decode_step(params, ch, toks[:, t], pos, cfg)
+        assert float((lc.cpu() - lh).abs().max()) <= 1e-4 * float(lh.abs().max())
+
+
 def test_lm_ring_buffer_longer_prefill_on_the_card(dev):
     """A prefill of 16 positions into an 8-slot ring (S > W) on CUDA: each
     slot keeps the last position that maps to it (``index_put_`` with

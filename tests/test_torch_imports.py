@@ -43,7 +43,9 @@ def test_port_has_its_modules():
                  "dist/sharding.py", "launch/mesh.py", "data/pipeline.py",
                  "train/elastic.py", "models/lm_config.py", "models/layers.py",
                  "models/moe.py", "models/transformer.py", "models/frontends.py",
-                 "configs/registry.py", *(f"configs/{a}.py" for a in COPIED_CONFIGS)):
+                 "configs/registry.py", *(f"configs/{a}.py" for a in COPIED_CONFIGS),
+                 "models/ssm.py", "models/xlstm.py", "models/hybrid.py", "models/lm.py",
+                 "configs/shapes.py", "launch/serve.py", "launch/serve_lm.py"):
         assert want in names, want
     twins = {p.name for p in TWIN_FILES}
     assert {"bench_sparse_cnn_torch.py", "check_sparse_regression_torch.py",

@@ -1,11 +1,13 @@
 """Port vs JAX package: the transformer LM family (dense, MoE, VLM, audio)
-of ``models/transformer.py``, its serving entry points, the config copy
-(``models/lm_config.py``) and the architecture registry
-(``configs/registry.py``).
+of ``models/transformer.py``, its serving entry points (``models/lm.py``'s
+``prefill``/``decode_step``), the config copy (``models/lm_config.py``) and
+the architecture registry (``configs/registry.py``). The forward tests and
+the tree test go through the front door (``lm.init``/``lm.forward``) and
+so cover the recurrent families (xLSTM, the Zamba-2 hybrid) too.
 
-The JAX side draws the weights (``transformer.init``); ``np.asarray`` of
-them goes through ``params_from_numpy`` into the port, and the same numpy
-inputs go to both. Logits within 1e-4 of the largest |logit| (f32 smoke
+The JAX side draws the weights (``lm.init``); ``np.asarray`` of them goes
+through ``lm.params_from_numpy`` into the port, and the same numpy inputs
+go to both. Logits within 1e-4 of the largest |logit| (f32 smoke
 configs), the MoE aux loss within 1e-5; decode against the full forward
 within 2e-4, as ``tests/test_models_lm.py`` holds the JAX package. The
 registry and the config copy are held *equal*."""
@@ -19,9 +21,9 @@ import jax
 import jax.numpy as jnp
 
 from repro.configs import registry as JR
-from repro.models import lm as JLM, lm_config as JLC, transformer as JT
+from repro.models import lm as JLM, lm_config as JLC
 from repro_torch.configs import registry as TR
-from repro_torch.models import lm_config as TLC, transformer as TT
+from repro_torch.models import lm as LM, lm_config as TLC, transformer as TT
 
 LOGIT_REL_TOL = 1e-4
 AUX_TOL = 1e-5
@@ -29,6 +31,11 @@ DECODE_TOL = 2e-4
 
 TRANSFORMER_ARCHS = sorted(a for a, e in JR.REGISTRY.items()
                            if e.smoke.family not in ("ssm", "hybrid"))
+ALL_ARCHS = sorted(JR.REGISTRY)
+# the JAX side's init and forward run jitted: one compile, where the eager
+# ops of the recurrent families' scans compile one by one
+J_INIT = jax.jit(JLM.init, static_argnums=(1,))
+J_FORWARD = jax.jit(JLM.forward, static_argnums=(2,))
 
 
 def _batch_np(cfg, B=2, S=16, seed=1):
@@ -52,17 +59,17 @@ def _torch(b):
 
 
 def _both_params(arch, cfg_j, cfg_t, seed=0):
-    pj = JT.init(jax.random.PRNGKey(seed), cfg_j)
-    return pj, TT.params_from_numpy(jax.tree.map(np.asarray, pj), cfg_t, device="cpu")
+    pj = J_INIT(jax.random.PRNGKey(seed), cfg_j)
+    return pj, LM.params_from_numpy(jax.tree.map(np.asarray, pj), cfg_t, device="cpu")
 
 
-@pytest.mark.parametrize("arch", TRANSFORMER_ARCHS)
+@pytest.mark.parametrize("arch", ALL_ARCHS)
 def test_forward_matches_jax(arch):
     cfg_j, cfg_t = JR.get(arch).smoke, TR.get(arch).smoke
     pj, pt = _both_params(arch, cfg_j, cfg_t)
     b = _batch_np(cfg_j)
-    lj, cj, aj = JT.forward(pj, _jax(b), cfg_j)
-    lt, ct, at = TT.forward(pt, _torch(b), cfg_t)
+    lj, cj, aj = J_FORWARD(pj, _jax(b), cfg_j)
+    lt, ct, at = LM.forward(pt, _torch(b), cfg_t)
     lj = np.asarray(lj)
     assert cj is None and ct is None
     assert tuple(lt.shape) == lj.shape and lt.dtype == torch.float32
@@ -73,17 +80,18 @@ def test_forward_matches_jax(arch):
         assert float(at) > 0
 
 
-@pytest.mark.parametrize("arch", TRANSFORMER_ARCHS)
+@pytest.mark.parametrize("arch", ALL_ARCHS)
 def test_forward_with_caches_matches_jax(arch):
     """One forward through fresh caches (a prefill) on both sides: logits
-    and every cache leaf (k, v and the slots' positions) agree."""
+    and every cache leaf (k, v and the slots' positions; the recurrent
+    families' leaves within 1e-5 of their largest |value|) agree."""
     cfg_j, cfg_t = JR.get(arch).smoke, TR.get(arch).smoke
     pj, pt = _both_params(arch, cfg_j, cfg_t, seed=2)
     b = _batch_np(cfg_j, seed=3)
     S = sum(v.shape[1] for v in b.values() if v is not None)
-    lj, cj, _ = JT.forward(pj, _jax(b), cfg_j, caches=JT.init_caches(cfg_j, 2, S + 4))
-    lt, ct, _ = TT.forward(pt, _torch(b), cfg_t,
-                           caches=TT.init_caches(cfg_t, 2, S + 4, device="cpu"))
+    lj, cj, _ = J_FORWARD(pj, _jax(b), cfg_j, JLM.init_caches(cfg_j, 2, S + 4))
+    lt, ct, _ = LM.forward(pt, _torch(b), cfg_t,
+                           caches=LM.init_caches(cfg_t, 2, S + 4, device="cpu"))
     lj = np.asarray(lj)
     assert float(np.abs(lt.numpy() - lj).max()) <= LOGIT_REL_TOL * float(np.abs(lj).max())
     flat_j = jax.tree_util.tree_flatten_with_path(cj)[0]
@@ -95,6 +103,11 @@ def test_forward_with_caches_matches_jax(arch):
         got, want = flat_t[key].numpy(), np.asarray(leaf)
         if key[-1] == "pos":
             np.testing.assert_array_equal(got, want)
+        elif cfg_j.family in ("ssm", "hybrid"):
+            # the recurrent states, and the shared attention's k, v behind
+            # Mamba layers: x the leaf's largest |value|
+            np.testing.assert_allclose(got, want, atol=1e-5 * float(np.abs(want).max()),
+                                       rtol=0)
         else:
             np.testing.assert_allclose(got, want, atol=1e-5, rtol=0)
 
@@ -118,13 +131,13 @@ def test_prefill_decode_matches_jax_and_full_forward(arch):
     toks = np.random.RandomState(4).randint(0, cfg_j.vocab_size, (B, S)).astype(np.int32)
     full_t, _, _ = TT.forward(pt, {"tokens": torch.from_numpy(toks)}, cfg_t)
     lj, cj = JLM.prefill(pj, {"tokens": jnp.asarray(toks[:, :S // 2])}, cfg_j, max_len=S)
-    lt, ct = TT.prefill(pt, {"tokens": torch.from_numpy(toks[:, :S // 2])}, cfg_t, max_len=S)
+    lt, ct = LM.prefill(pt, {"tokens": torch.from_numpy(toks[:, :S // 2])}, cfg_t, max_len=S)
     vs_jax = [float(np.abs(lt.numpy() - np.asarray(lj)).max())]
     vs_full = [float((lt - full_t[:, S // 2 - 1]).abs().max())]
     for t in range(S // 2, S):
         lj, cj = JLM.decode_step(pj, cj, jnp.asarray(toks[:, t]),
                                  jnp.full((B,), t, jnp.int32), cfg_j)
-        lt, ct = TT.decode_step(pt, ct, torch.from_numpy(toks[:, t]),
+        lt, ct = LM.decode_step(pt, ct, torch.from_numpy(toks[:, t]),
                                 torch.full((B,), t, dtype=torch.int32), cfg_t)
         vs_jax.append(float(np.abs(lt.numpy() - np.asarray(lj)).max()))
         vs_full.append(float((lt - full_t[:, t]).abs().max()))
@@ -143,7 +156,7 @@ def test_prefill_longer_than_the_window_matches_jax():
     B, S = 2, 16
     toks = np.random.RandomState(6).randint(0, cfg_j.vocab_size, (B, S + 4)).astype(np.int32)
     lj, cj = JLM.prefill(pj, {"tokens": jnp.asarray(toks[:, :S])}, cfg_j, max_len=S + 4)
-    lt, ct = TT.prefill(pt, {"tokens": torch.from_numpy(toks[:, :S])}, cfg_t, max_len=S + 4)
+    lt, ct = LM.prefill(pt, {"tokens": torch.from_numpy(toks[:, :S])}, cfg_t, max_len=S + 4)
     assert tuple(ct["local"]["k"].shape[2:3]) == (8,)
     np.testing.assert_array_equal(ct["local"]["pos"].numpy(), np.asarray(cj["local"]["pos"]))
     np.testing.assert_allclose(ct["local"]["k"].numpy(), np.asarray(cj["local"]["k"]),
@@ -152,7 +165,7 @@ def test_prefill_longer_than_the_window_matches_jax():
     for t in range(S, S + 4):
         lj, cj = JLM.decode_step(pj, cj, jnp.asarray(toks[:, t]),
                                  jnp.full((B,), t, jnp.int32), cfg_j)
-        lt, ct = TT.decode_step(pt, ct, torch.from_numpy(toks[:, t]),
+        lt, ct = LM.decode_step(pt, ct, torch.from_numpy(toks[:, t]),
                                 torch.full((B,), t, dtype=torch.int32), cfg_t)
         errs.append(float(np.abs(lt.numpy() - np.asarray(lj)).max()))
     np.testing.assert_array_equal(ct["local"]["pos"].numpy(), np.asarray(cj["local"]["pos"]))
@@ -161,14 +174,15 @@ def test_prefill_longer_than_the_window_matches_jax():
 
 def test_params_tree_and_shapes_match_jax():
     """The port's own ``init`` builds the JAX package's tree: the same keys,
-    shapes and dtypes (routers f32), for every transformer architecture."""
-    for arch in TRANSFORMER_ARCHS:
+    shapes and dtypes (routers and Mamba's ``A_log``, ``D``, ``dt_bias``
+    f32), for every architecture."""
+    for arch in ALL_ARCHS:
         cfg_j, cfg_t = JR.get(arch).smoke, TR.get(arch).smoke
-        shapes_j = jax.eval_shape(lambda: JT.init(jax.random.PRNGKey(0), cfg_j))
+        shapes_j = jax.eval_shape(lambda: JLM.init(jax.random.PRNGKey(0), cfg_j))
         flat_j = {tuple(k.key for k in p): l for p, l in
                   jax.tree_util.tree_flatten_with_path(shapes_j)[0]}
         from repro_torch.core.masks import tree_flatten_with_path
-        flat_t = dict(tree_flatten_with_path(TT.init(0, cfg_t, device="cpu")))
+        flat_t = dict(tree_flatten_with_path(LM.init(0, cfg_t, device="cpu")))
         assert set(flat_j) == set(flat_t), arch
         for k, leaf in flat_j.items():
             assert tuple(flat_t[k].shape) == leaf.shape, (arch, k)
