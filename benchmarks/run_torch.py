@@ -9,6 +9,7 @@ One module per paper table/figure, each run on ``--device`` (the GPU unless
   bench_blocksparse_torch   — beyond-paper tile-HAPM block-sparse kernel
   bench_sparse_cnn_torch    — executed group-sparse CNN inference (DSB kernel)
   bench_serving_cnn_torch   — exec-cache serving (latency/hit-rate)
+  bench_roofline_torch      — roofline table (reads the dry-run's dryrun_results_torch.json)
 
 ``--out`` writes every bench's result (model objects left out) with the
 device, the card's name and power limit and each bench's seconds:
@@ -28,8 +29,9 @@ import traceback
 import torch
 
 from benchmarks import (bench_blocksparse_torch, bench_cycle_model_torch,
-                        bench_inference_torch, bench_serving_cnn_torch,
-                        bench_sparse_cnn_torch, bench_training_torch)
+                        bench_inference_torch, bench_roofline_torch,
+                        bench_serving_cnn_torch, bench_sparse_cnn_torch,
+                        bench_training_torch)
 from repro_torch.models import cnn
 
 ALL = {
@@ -39,6 +41,7 @@ ALL = {
     "blocksparse": bench_blocksparse_torch,
     "sparse_cnn": bench_sparse_cnn_torch,
     "serving_cnn": bench_serving_cnn_torch,
+    "roofline": bench_roofline_torch,
 }
 # keys of a bench's result that hold objects, not numbers: left out of --out
 NOT_WRITTEN = ("models", "dataset", "reports")
@@ -54,6 +57,8 @@ def parse_args(argv=None):
                          "one; 'cpu' runs the kernels' plain PyTorch versions)")
     ap.add_argument("--out", default=None,
                     help="write every bench's result to this JSON file")
+    ap.add_argument("--dryrun-json", default=bench_roofline_torch.DEFAULT_JSON,
+                    help="the dry-run results the roofline table reads")
     return ap.parse_args(argv)
 
 
@@ -98,8 +103,6 @@ def main(argv=None):
     args = parse_args(argv)
     device = cnn.resolve_device(args.device)    # no device, no run: nothing falls back
     names = args.only or list(ALL)
-    print("[roofline] not ported: its twin waits for the dry-run port "
-          "(ROADMAP.md queue 1 item 5)")
     failures, shared, seconds = [], {}, {}
     for name in names:
         t0 = time.time()

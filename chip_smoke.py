@@ -122,7 +122,25 @@ Run ``python3 chip_smoke.py`` from the repository root. It
    its 81 layers, served in bf16 as ``launch/serve.py`` serves them and
    checked as the transformer models are (the bound of a decode step counts
    the state read and written), zamba2-7b also prefilled at B 1, S 2048,
-12. prints one JSON line per phase, then the card's name and power limit, a
+12. runs LM training as a tenth main path (``lm_train``: K1 and K3 must
+   launch): every registry architecture at smoke size trained 2 steps (f32,
+   grad_accum 2, ~30 % of the groups pruned) against CPU runs; the
+   ``examples/prune_lm_blocksparse.py`` twin (K1's forward on the pruned
+   FFN) and the training command line at smoke size on the card;
+   mistral-nemo-12b at full width with 2 of its layers trained as
+   ``launch/train.py`` trains it (bf16, ``remat="full"``, grad_accum 2, 4 x
+   512 tokens a step, HAPM 0.25; pruned groups exactly 0 after every step),
+   timed (step p50, device time a step, peak memory beside 6 N tokens at the
+   bf16 peak); its f32 gradients on 1 x 128 tokens against a CPU run;
+   ``remat`` none / dots / full (gradients, peak memory, saved activations);
+   its layer-0 ``ffn/wi`` pruned to 0.5 by HAPM through
+   ``make_block_sparse_matmul`` forward and backward at 2048 rows, f32 and
+   bf16 (K1's forward and dX, K3's dW against their plain versions and the
+   masked-dense product, timed beside ``torch.matmul`` and the bound); and
+   the dry-run (``launch/dryrun.py``) of mistral-nemo-12b x train_4k and
+   zamba2-7b x decode_32k in two background processes, one with the card
+   hidden, whose argument bytes must agree, then the roofline twin,
+13. prints one JSON line per phase, then the card's name and power limit, a
    ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device": {...}}``.
 
 Any failing phase raises: the exit code is non-zero and no ``ok`` line is
@@ -139,10 +157,10 @@ often: ``ms`` is the device time per launch with launches queued back to
 back, ``call_ms`` one call on an idle device. ``bound_ms`` counts what the
 convolution needs (real output rows and channels); ``bound_padded_ms`` also
 counts the padded lanes and rows the kernel's output array carries.
-``launches`` sums the nine main paths (serving, training, pricing,
+``launches`` sums the ten main paths (serving, training, pricing,
 fixed point, the executed-sparsity bench, the serving bench, the paper's
-tables, the transformer and the recurrent LM families), each counted from
-zero just before it is driven;
+tables, the transformer and the recurrent LM families, LM training), each
+counted from zero just before it is driven;
 ``launches_by_path`` splits them. K2's entry also has ``by_mode``: its int8
 (``streamed``, ``int8``) and f32 instances at the representative geometry,
 streamed at batch 1 in both layouts, each beside its bound and the cuDNN
@@ -152,7 +170,9 @@ forward rows there and its f32 dX at the training batch in both layouts
 (``f32_dx_batch128``, ``f32_dx_batch128_packed``), and
 ``paper_tables_f32_forward`` its f32 forward at each level of the
 block-sparse bench (256 x 1024 x 1024, (128, 128) tiles) beside
-``torch.matmul`` (``library_ms``). The ``timing`` phase gives each bucket's device time per kernel
+``torch.matmul`` (``library_ms``); K1's and K3's ``lm_ffn_wi`` give them
+at mistral-nemo-12b's ``ffn/wi`` (2048 x 5120 x 14336, half the tiles live),
+f32 and bf16, beside ``torch.matmul`` on the masked weight. The ``timing`` phase gives each bucket's device time per kernel
 (``device_ms_by_kernel``). The pricing path's times and GOP/s for the FPGA
 boards are outputs of the cycle model, not times on the card.
 """
@@ -160,6 +180,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import gc
 import hashlib
 import itertools
 import json
@@ -245,6 +266,7 @@ PATH_KERNELS = {
     "paper_tables": ("block_sparse_matmul",),
     "lm_transformer": (),       # the LM family calls none of them: each must read 0
     "lm_recurrent": (),         # nor do the recurrent families
+    "lm_train": ("block_sparse_matmul", "block_sparse_grad_weight"),
 }
 
 F32_TOL = 1e-4          # f32 kernels vs plain: summation order differs
@@ -2593,6 +2615,496 @@ def phase_lm_recurrent(card, device) -> dict:
     return launched
 
 
+# ---------------------------------------------------------------------------
+# main path 10: LM training, the pruned FFN on K1/K3, the dry-run
+# ---------------------------------------------------------------------------
+
+LM_TRAIN_ARCH = "mistral-nemo-12b"
+LM_TRAIN_MICRO = (2, 512)       # rows, tokens of a micro-batch; grad_accum 2: 4 x 512 a step
+LM_TRAIN_STEPS = 6
+LM_TRAIN_SPARSITY = 0.25        # HAPM group sparsity, reached at the third epoch update
+LM_TRAIN_PARAM_TOL = 1e-4       # smoke steps, card vs CPU: per leaf x its largest |value|
+LM_TRAIN_LOSS_TOL = 1e-5        # f32 loss, card vs CPU, relative
+LM_TRAIN_F32 = (1, 128)         # rows, tokens of the f32 gradient check against the CPU
+LM_REMAT_TOL = 1e-2             # bf16 gradients under dots / full vs none: per leaf x max |g|
+LM_WI_ROWS = 2048
+LM_WI_SPARSITY = 0.5
+BF16_TOL = 2.0 ** -7            # bf16 outputs: one ulp of the largest, x max |want|
+PEAK_BF16_S = 989.5e12          # dense bf16 tensor rate (half the int8 row)
+DRYRUN_CELLS = (("mistral-nemo-12b", "train_4k"), ("zamba2-7b", "decode_32k"))
+DRYRUN_JSON = os.path.join(ROOT, "build", "chip_smoke", "dryrun_results_torch.json")
+DRYRUN_CPU_JSON = os.path.join(ROOT, "build", "chip_smoke", "dryrun_results_torch_cpu.json")
+DRYRUN_TIMEOUT_S = 600
+
+
+def import_lm_train() -> None:
+    """Import the training slice's modules when its path runs (an older tree
+    timed under ``--baseline`` may not have them)."""
+    global TT, PLB, DRY, GroupSpec, hapm_group_sparsity, block_ops
+    from repro_torch.core import hapm_group_sparsity
+    from repro_torch.core.groups import GroupSpec
+    from repro_torch.kernels import ops as block_ops
+    from repro_torch.launch import dryrun as DRY
+    from repro_torch.launch import prune_lm_blocksparse as PLB
+    from repro_torch.launch import train as TT
+
+
+def start_dryruns() -> list:
+    """The dry-run's entry point (``launch.dryrun.main``) over ``DRYRUN_CELLS``
+    on the 16 x 16 mesh, in two processes started now: one that sees the card,
+    one with every card hidden (a CPU run). Both walk meta tensors on the
+    host while the card trains."""
+    procs = []
+    for out, hide in ((DRYRUN_JSON, False), (DRYRUN_CPU_JSON, True)):
+        if os.path.exists(out):
+            os.remove(out)
+        code = ("from repro_torch.launch import dryrun as D\n"
+                f"for a, s in {DRYRUN_CELLS!r}:\n"
+                f"    assert D.main(['--arch', a, '--shape', s, '--mesh', 'single', "
+                f"'--out', {out!r}]) == 0\n")
+        env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+        if hide:
+            env["CUDA_VISIBLE_DEVICES"] = ""
+        log = open(out + ".log", "w")
+        procs.append((out, log, subprocess.Popen([sys.executable, "-c", code], env=env,
+                                                 cwd=ROOT, stdout=log,
+                                                 stderr=subprocess.STDOUT)))
+    return procs
+
+
+def stop_dryruns(procs) -> None:
+    for _, log, p in procs:
+        if p.poll() is None:
+            p.kill()
+            p.wait()
+        log.close()
+
+
+def finish_dryruns(procs) -> dict:
+    """Wait for both dry-runs; the cells' argument bytes (and counts) on the
+    card's machine must equal the CPU run's; then the roofline twin over the
+    card's JSON."""
+    import contextlib
+    import io
+    from benchmarks import bench_roofline_torch
+    t0 = time.time()
+    for out, _, p in procs:
+        rc = p.wait(timeout=DRYRUN_TIMEOUT_S)
+        if rc != 0:
+            with open(out + ".log") as f:
+                raise AssertionError(f"lm_train: the dry-run into {out} exited {rc}: "
+                                     f"{f.read()[-2000:]}")
+    card, cpu = ({}, {})
+    for into, path in ((card, DRYRUN_JSON), (cpu, DRYRUN_CPU_JSON)):
+        with open(path) as f:
+            into.update(json.load(f))
+    if set(card) != set(cpu) or len(card) != len(DRYRUN_CELLS):
+        raise AssertionError(f"lm_train: dry-run cells {sorted(card)} vs {sorted(cpu)}")
+    cells = {}
+    for key, r in card.items():
+        c = cpu[key]
+        if r["status"] != "ok" or c["status"] != "ok":
+            raise AssertionError(f"lm_train: dry-run {key}: {r.get('error')} / {c.get('error')}")
+        for k in ("argument_bytes", "gradient_bytes", "saved_activation_bytes"):
+            if r["memory"][k] != c["memory"][k]:
+                raise AssertionError(f"lm_train: dry-run {key} {k} {r['memory'][k]} on the "
+                                     f"card's machine, {c['memory'][k]} on the CPU")
+        if r["counts"] != c["counts"]:
+            raise AssertionError(f"lm_train: dry-run {key} counts differ from the CPU run's")
+        cells[key] = {"walk_s": r["walk_s"], "cpu_walk_s": c["walk_s"],
+                      "memory": r["memory"], "fits_hbm": r["fits_hbm"],
+                      "hbm_per_chip_bytes": r["hbm_per_chip_bytes"],
+                      "roofline": r["roofline"], "model_flops": r["model_flops"],
+                      "useful_compute_ratio": r["useful_compute_ratio"],
+                      "argument_bytes_equal_cpu": True}
+    table = io.StringIO()
+    with contextlib.redirect_stdout(table):
+        summary = bench_roofline_torch.run(argparse.Namespace(dryrun_json=DRYRUN_JSON))
+    if summary != {"rows": len(DRYRUN_CELLS), "errors": 0}:
+        raise AssertionError(f"lm_train: the roofline twin read {summary}")
+    return {"cells": cells, "wait_s": time.time() - t0,
+            "roofline_table": table.getvalue().splitlines()}
+
+
+def lm_train_batch(cfg, rs, B: int, S: int) -> dict:
+    """A training batch from a numpy seed: tokens and next-token targets,
+    and the VLM's image prefix / the audio family's frame embeddings."""
+    toks = rs.randint(0, cfg.vocab_size, (B, S + 1)).astype(np.int32)
+    if cfg.family == "vlm":
+        P = cfg.num_prefix_tokens
+        return {"tokens": toks[:, :S - P], "targets": toks[:, 1:S - P + 1],
+                "embeds": (rs.randn(B, P, cfg.d_model) * 0.1).astype(np.float32)}
+    if cfg.family == "audio":
+        return {"tokens": None, "targets": toks[:, 1:],
+                "embeds": (rs.randn(B, S, cfg.d_model) * 0.1).astype(np.float32)}
+    return {"tokens": toks[:, :-1], "targets": toks[:, 1:]}
+
+
+def leaf_err(got, want) -> tuple:
+    """max over leaves of max |got - want| / max |want| (float64, CPU; a
+    leaf whose groups are all pruned is 0 on both sides), and that leaf's
+    path."""
+    w = dict(tree_flatten_with_path(want))
+
+    def err(a, b):
+        a, b = a.double().cpu(), b.double().cpu()
+        return float((a - b).abs().max() / max(float(b.abs().max()), 1e-30))
+
+    return max((err(t, w[p]), p) for p, t in tree_flatten_with_path(got))
+
+
+def pruned_groups_zero(params, specs, gmasks) -> bool:
+    """Every pruned group of every weight sums to exactly 0 in |w|."""
+    w, gm = dict(tree_flatten_with_path(params)), dict(tree_flatten_with_path(gmasks))
+    for path, spec in tree_flatten_with_path(
+            specs, is_leaf=lambda x: isinstance(x, GroupSpec)):
+        scores = spec.group_scores(w[path].float())
+        if bool((scores[gm[path].to(scores.device) == 0] != 0).any()):
+            return False
+    return True
+
+
+def phase_lm_train_smoke(device) -> dict:
+    """Every registry architecture at smoke size (f32, grad_accum 2, MoE at
+    drop-free capacity): 2 train steps with ~30 % of each weight's groups
+    pruned on the card and on the CPU, from the same weights and batches;
+    params within ``LM_TRAIN_PARAM_TOL`` x each leaf's largest |value|,
+    pruned groups exactly 0 on the card."""
+    out = {}
+    cpu = torch.device("cpu")
+    for i, arch in enumerate(sorted(TREG.REGISTRY)):
+        cfg = lm_drop_free(dataclasses.replace(TREG.get(arch).smoke, grad_accum=2))
+        p_cpu = LM.init(400 + i, cfg, device=cpu)
+        p_card = tree_map(lambda t: t.to(device), p_cpu)
+        specs = LM.group_specs(p_cpu, cfg)
+        gen = torch.Generator().manual_seed(500 + i)
+        gm_cpu = tree_map(lambda m: (torch.rand(m.shape, generator=gen) > 0.3).float(),
+                          TT.init_group_masks(specs))
+        gm_card = tree_map(lambda m: m.to(device), gm_cpu)
+        step, opt_init = TT.build_train_step(cfg, specs, lr=3e-4)
+        o_cpu, o_card = opt_init(p_cpu), opt_init(p_card)
+        rs = np.random.RandomState(600 + i)
+        losses = []
+        for _ in range(2):
+            b = lm_train_batch(cfg, rs, 4, 16)
+            p_card, o_card, l_card = step(p_card, o_card, gm_card, on(b, device))
+            p_cpu, o_cpu, l_cpu = step(p_cpu, o_cpu, gm_cpu, on(b, cpu))
+            losses.append((float(l_card), float(l_cpu)))
+        err, leaf = leaf_err(p_card, p_cpu)
+        check(f"lm_train: {arch} smoke params after 2 steps vs CPU (leaf {leaf})", err,
+              LM_TRAIN_PARAM_TOL)
+        if not pruned_groups_zero(p_card, specs, gm_card):
+            raise AssertionError(f"lm_train: {arch} smoke: a pruned group is not 0")
+        out[arch] = {"params_vs_cpu": err, "worst_leaf": "/".join(map(str, leaf)),
+                     "loss_vs_cpu": max(abs(a - b) / abs(b) for a, b in losses),
+                     "moments_vs_cpu": leaf_err(o_card.mu, o_cpu.mu)[0]}
+    return out
+
+
+def phase_lm_train_full(device, card) -> tuple:
+    """mistral-nemo-12b at full width with ``LM_LAYERS`` of its layers,
+    trained as ``launch/train.py`` trains (bf16, ``remat="full"``,
+    grad_accum 2, micro-batches of ``LM_TRAIN_MICRO`` from ``TokenStream``,
+    HAPM at ``LM_TRAIN_SPARSITY`` with an epoch update before every second
+    step): finite losses, pruned groups exactly 0 after every step, the
+    sparsity reached; step p50 (CUDA events), device ms a step (profiler),
+    tokens/s and peak memory beside 6 N tokens at the bf16 peak. Returns
+    (its line, the f32 weights, the trained bf16 weights, the config)."""
+    full = TREG.get(LM_TRAIN_ARCH).config
+    cfg = dataclasses.replace(full, num_layers=LM_LAYERS, remat="full", grad_accum=2)
+    torch.cuda.reset_peak_memory_stats(device)
+    p32 = LM.init(7, dataclasses.replace(cfg, dtype="float32"), device=device)
+    params = lm_cast(p32, cfg)
+    specs = LM.group_specs(params, cfg)
+    hcfg = HAPMConfig(LM_TRAIN_SPARSITY, 3)
+    hstate = hapm_init(specs, hcfg)
+    step, opt_init = TT.build_train_step(cfg, specs, lr=3e-4)
+    opt = opt_init(params)
+    R, S = LM_TRAIN_MICRO
+    it = TokenStream(cfg.vocab_size, S, seed=3).batches(R * cfg.grad_accum, seed=4)
+    batches = [on(next(it), device) for _ in range(LM_TRAIN_STEPS)]
+    losses, step_ms, sparsity = [], [], []
+    for k, batch in enumerate(batches):
+        if k % 2 == 0:
+            hstate = hapm_epoch_update(hstate, specs, params, hcfg)
+            gm = TT.group_masks_on(hstate, device)
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        params, opt, loss = step(params, opt, gm, batch)
+        ev[1].record()
+        ev[1].synchronize()
+        step_ms.append(ev[0].elapsed_time(ev[1]))
+        losses.append(float(loss))
+        sparsity.append(hapm_group_sparsity(hstate))
+        if not np.isfinite(losses[-1]):
+            raise AssertionError(f"lm_train: step {k} loss {losses[-1]}")
+        if not pruned_groups_zero(params, specs, gm):
+            raise AssertionError(f"lm_train: a pruned group is not 0 after step {k}")
+    if abs(sparsity[-1] - LM_TRAIN_SPARSITY) > 0.01:
+        raise AssertionError(f"lm_train: group sparsity {sparsity[-1]}, "
+                             f"target {LM_TRAIN_SPARSITY}")
+    peak_gb = torch.cuda.max_memory_allocated(device) / 1e9
+    tokens = R * S * cfg.grad_accum
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    p50 = statistics.median(step_ms[1:])
+    prof = lm_step_device_ms(lambda: step(params, opt, gm, batches[-1]), device, calls=3)
+    row = {"config": {**dataclasses.asdict(cfg),
+                      "cut": f"{cfg.num_layers} of {full.num_layers} layers"},
+           "params": n_params, "micro_batch": list(LM_TRAIN_MICRO),
+           "tokens_per_step": tokens, "losses": losses, "group_sparsity": sparsity,
+           "pruned_groups_zero_every_step": True, "step_ms": step_ms,
+           "step_p50_ms": p50, "tokens_per_s": tokens / (p50 / 1e3),
+           "device_ms_per_step": prof["device_ms"], "profiler": prof,
+           "bound_ms": 6.0 * n_params * tokens / PEAK_BF16_S * 1e3,
+           "bound_by": "operations (6 N tokens at the bf16 peak)", "peak_gb": peak_gb,
+           "weights_and_moments_gb": (lm_bytes(params) + lm_bytes(opt.mu)
+                                      + lm_bytes(opt.nu)) / 1e9, "card": card}
+    return row, p32, params, cfg
+
+
+def lm_grads(params, cfg, batch):
+    return value_and_grad(lambda p, b: LM.loss_fn(p, b, cfg), params, batch)
+
+
+def phase_lm_train_checks(p32, params, cfg, device) -> dict:
+    """(a) f32, TF32 off, one micro-batch of ``LM_TRAIN_F32``: loss and
+    gradients on the card against the port's CPU run on the same weights;
+    (b) ``remat`` none / dots / full on the trained bf16 weights and one
+    micro-batch of ``LM_TRAIN_MICRO``: the gradients of dots and full
+    against none, and each one's peak memory above what was allocated
+    before, its time, and (a second pass) the activations autograd saved
+    for the backward."""
+    cfg32 = dataclasses.replace(cfg, dtype="float32", grad_accum=1)
+    B, S = LM_TRAIN_F32
+    b = next(TokenStream(cfg.vocab_size, S, seed=8).batches(B, seed=9))
+    t0 = time.time()
+    (l_card, _), g_card = lm_grads(p32, cfg32, on(b, device))
+    p_cpu = tree_map(lambda t: t.cpu(), p32)
+    (l_cpu, _), g_cpu = lm_grads(p_cpu, cfg32, on(b, torch.device("cpu")))
+    worst = {"/".join(map(str, p)): rel_err(g, dict(tree_flatten_with_path(g_cpu))[p])
+             for p, g in tree_flatten_with_path(g_card)}
+    out = {"f32": {"rows_tokens": [B, S],
+                   "loss_vs_cpu": check("lm_train: f32 loss vs CPU",
+                                        abs(float(l_card) - float(l_cpu)) / abs(float(l_cpu)),
+                                        LM_TRAIN_LOSS_TOL),
+                   "grad_leaf_vs_cpu": check("lm_train: f32 gradient leaf vs CPU",
+                                             max(worst.values()), GRAD_REL_TOL),
+                   "by_leaf": worst, "s": time.time() - t0}}
+    del p_cpu, g_cpu, g_card
+
+    R, S = LM_TRAIN_MICRO
+    micro = on(next(TokenStream(cfg.vocab_size, S, seed=10).batches(R, seed=11)), device)
+    remat, ref = {}, None
+    for r in ("none", "dots", "full"):
+        c = dataclasses.replace(cfg, remat=r, grad_accum=1)
+        gc.collect()                # what an earlier pass left must not count as its base
+        sync(device)
+        base = torch.cuda.memory_allocated(device)
+        torch.cuda.reset_peak_memory_stats(device)
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        (loss, _), grads = lm_grads(params, c, micro)
+        ev[1].record()
+        ev[1].synchronize()
+        remat[r] = {"peak_above_args_gb": (torch.cuda.max_memory_allocated(device) - base) / 1e9,
+                    "base_gb": base / 1e9, "ms": ev[0].elapsed_time(ev[1]),
+                    "loss": float(loss)}
+        if ref is None:
+            ref = grads
+        else:
+            err, leaf = leaf_err(grads, ref)
+            remat[r]["grads_vs_none"] = check(f"lm_train: remat {r} gradients vs none "
+                                              f"(leaf {leaf})", err, LM_REMAT_TOL)
+        del grads
+        saved = DRY.SavedBytes((params, micro))      # a second pass: it holds what it counts
+        with saved.counting():
+            lm_grads(params, c, micro)
+        remat[r]["saved_activation_gb"] = saved.bytes / 1e9
+        del saved
+    out["remat"] = remat
+    return out
+
+
+def lm_wi_operands(p32, cfg, device) -> dict:
+    """mistral-nemo-12b's layer-0 ``ffn/wi`` (5120 x 14336, 40 x 112 tiles)
+    pruned to ``LM_WI_SPARSITY`` by one HAPM epoch over its tile groups, its
+    plans and tables, and ``LM_WI_ROWS`` rows of x and of an output gradient
+    from a numpy seed."""
+    stacked = LM.group_specs(p32, cfg)["blocks"]["ffn"]["wi"]
+    spec, _ = PLB.layer_spec(stacked, np.ones(stacked.num_groups))
+    w = p32["blocks"]["ffn"]["wi"][0].contiguous()
+    hcfg = HAPMConfig(LM_WI_SPARSITY, 1)
+    hs = hapm_epoch_update(hapm_init({"wi": spec}, hcfg), {"wi": spec}, {"wi": w}, hcfg)
+    tm = np.asarray(hs.group_masks["wi"]).reshape(spec.tiles) > 0
+    block = spec.block
+    plan = plan_from_tile_mask(tm, block)
+    t_plan = transpose_plan(plan, tm)
+    live = np.argwhere(tm)
+    rs = np.random.RandomState(27)
+    dev = lambda a: torch.from_numpy(a).to(device)
+    K, N = w.shape
+    return {"w": w, "tm": tm, "block": block, "plan": plan, "t_plan": t_plan,
+            "idx": dev(plan.idx), "cnt": dev(plan.cnt), "t_idx": dev(t_plan.idx),
+            "t_cnt": dev(t_plan.cnt),
+            "kk": dev(live[:, 0].astype(np.int32)), "nn": dev(live[:, 1].astype(np.int32)),
+            "stacks": dev(BSM.grad_weight_stacks(live[:, 0], live[:, 1], block[0])),
+            "x": dev(rs.randn(LM_WI_ROWS, K).astype(np.float32)),
+            "g": dev(rs.randn(LM_WI_ROWS, N).astype(np.float32)),
+            "mask": dev(np.kron(tm, np.ones(block, np.float32)).astype(np.float32))}
+
+
+def lm_wi_path(ops_in) -> dict:
+    """The pruned ``wi`` through ``make_block_sparse_matmul`` forward and
+    backward, f32 and bf16: K1's forward, K1's dX on the transposed plan, K3's
+    dW. Returns each dtype's (y, dx, dw, x, w)."""
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        f = block_ops.make_block_sparse_matmul(ops_in["plan"], ops_in["tm"])
+        x = ops_in["x"].to(dtype, copy=True).requires_grad_()
+        w = ops_in["w"].to(dtype, copy=True).requires_grad_()
+        y = f(x, w)
+        y.backward(ops_in["g"].to(dtype))
+        out[dtype] = (y.detach(), x.grad, w.grad, x.detach(), w.detach())
+    return out
+
+
+def phase_lm_wi_kernels(ops_in, ran, device, reps: int, worst) -> dict:
+    """K1 and K3 at the ``wi`` shape, on the operands the path ran: each of
+    forward, dX and dW against its plain version on the same CUDA operands
+    (``F32_TOL`` for f32 forward and dX, ``GRAD_W_REL_TOL`` x max(|x|ᵀ|g|) for
+    dW; ``BF16_TOL`` x max |want| for bf16 outputs) and against the
+    masked-dense product; the pruned tiles' dW bitwise 0. Then each launch's
+    device time (queued), its plain version's, ``torch.matmul`` on the
+    masked weight, and the bound (inputs read once, outputs written once;
+    live tiles only)."""
+    block, (bk, bn) = ops_in["block"], ops_in["block"]
+    tm = ops_in["tm"]
+    M, (K, N) = LM_WI_ROWS, tuple(ops_in["w"].shape)
+    live = int(tm.sum())
+    dead = ~torch.from_numpy(np.kron(tm, np.ones(block, bool))).to(device)
+    rows = {}
+    for dtype, (y, dx, dw, x, w) in ran.items():
+        name = "f32" if dtype == torch.float32 else "bf16"
+        g = ops_in["g"].to(dtype)
+        wt = w.t().contiguous()
+        xf, gf = x.float(), g.float()
+        kern = {
+            "forward": lambda: BSM.block_sparse_matmul(x, w, ops_in["idx"], ops_in["cnt"],
+                                                       block=block, bm=128),
+            "dx": lambda: BSM.block_sparse_matmul(g, wt, ops_in["t_idx"], ops_in["t_cnt"],
+                                                  block=(bn, bk), bm=128),
+            "dw": lambda: BSM.block_sparse_grad_weight(xf, gf, ops_in["kk"], ops_in["nn"],
+                                                       block=block, bm=128,
+                                                       stacks=ops_in["stacks"])}
+        plain = {
+            "forward": lambda: BSM.block_sparse_matmul_plain(x, w, ops_in["idx"], ops_in["cnt"],
+                                                             block=block, bm=128),
+            "dx": lambda: BSM.block_sparse_matmul_plain(g, wt, ops_in["t_idx"],
+                                                        ops_in["t_cnt"], block=(bn, bk),
+                                                        bm=128),
+            "dw": lambda: BSM.block_sparse_grad_weight_plain(xf, gf, ops_in["kk"],
+                                                             ops_in["nn"], block=block,
+                                                             bm=128)}
+        wm = w * ops_in["mask"].to(dtype)
+        library = {"forward": lambda: torch.matmul(x, wm),
+                   "dx": lambda: torch.matmul(g, wm.t()),
+                   "dw": lambda: torch.matmul(x.t(), g)}
+        with torch.no_grad():
+            dense = {"forward": (xf @ wm.float()), "dx": (gf @ wm.float().t()),
+                     "dw": (xf.t() @ gf) * ops_in["mask"]}
+            compact = plain["dw"]()
+            dw_plain = torch.zeros((K // bk, N // bn, bk, bn), device=device)
+            dw_plain[ops_in["kk"].long(), ops_in["nn"].long()] = compact
+            want = {"forward": plain["forward"](), "dx": plain["dx"](),
+                    "dw": dw_plain.permute(0, 2, 1, 3).reshape(K, N).to(dtype)}
+        got = {"forward": y, "dx": dx, "dw": dw}
+        if not bool((dw[dead] == 0).all()):
+            raise AssertionError(f"lm_train: {name} dW of a pruned tile is not 0")
+        scale_dw = float((xf.abs().t() @ gf.abs()).max())
+        esize = 4 if dtype == torch.float32 else 2
+        work = {"forward": (2.0 * M * live * bk * bn, (M * K + live * bk * bn + M * N) * esize),
+                "dx": (2.0 * M * live * bk * bn, (M * N + live * bk * bn + M * K) * esize),
+                "dw": (2.0 * M * live * bk * bn, (M * K + M * N) * 4 + live * bk * bn * 4)}
+        peak = PEAK_OPS_S["f32"] if dtype == torch.float32 else PEAK_BF16_S
+        for part in ("forward", "dx", "dw"):
+            err = float((got[part].double() - want[part].double()).abs().max())
+            err_dense = float((got[part].double() - dense[part].double()).abs().max())
+            top = float(want[part].abs().max())
+            if dtype != torch.float32:
+                bar = BF16_TOL * top
+            elif part == "dw":
+                bar = GRAD_W_REL_TOL * scale_dw
+            else:
+                bar = F32_TOL * max(1.0, top)
+            kname = "block_sparse_grad_weight" if part == "dw" else "block_sparse_matmul"
+            check(f"lm_train: {name} {part} vs its plain version", err, bar)
+            check(f"lm_train: {name} {part} vs the masked-dense product", err_dense, bar)
+            worst[kname] = max(worst[kname], err)
+            ops_, nbytes = work[part]
+            t_ops, t_bytes = ops_ / peak, nbytes / PEAK_BYTES_S
+            rows[f"{name}_{part}"] = {
+                "kernel": kname, "shape": [M, K, N], "block": list(block),
+                "live_tiles": live, "tiles": int(tm.size), "max_abs_err": err,
+                "max_abs_err_vs_masked_dense": err_dense, "bar": bar,
+                "ms": device_ms(kern[part], device, reps),
+                "plain_ms": time_ms(plain[part], device, 2, warmup=1),
+                "library_ms": device_ms(library[part], device, reps),
+                "bound_ms": max(t_ops, t_bytes) * 1e3,
+                "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+    return rows
+
+
+def phase_lm_train(card, device, worst) -> tuple:
+    """The tenth main path: LM training as ``launch/train.py`` runs it, the
+    example twin (``launch/prune_lm_blocksparse.py``, K1's forward), the
+    training command line at smoke size, mistral-nemo-12b at full width and
+    its pruned layer-0 ``ffn/wi`` through ``make_block_sparse_matmul`` (K1's
+    forward and dX, K3's dW), with the launch counts set to 0 just before and
+    read just after; the dry-run of two cells in two processes meanwhile.
+    Then the checks and timings outside the count. Returns (the counts, the
+    ``wi`` rows for the kernels line)."""
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("lm_train: an earlier phase left TF32 matmuls on")
+    import_lm_path()
+    import_lm_train()
+    import contextlib
+    import io
+    t0 = time.time()
+    procs = start_dryruns()
+    try:
+        kernels.reset_launch_counts()
+        smoke = phase_lm_train_smoke(device)
+        printed, cli = io.StringIO(), io.StringIO()
+        with contextlib.redirect_stdout(printed):
+            example = PLB.main(["--device", str(device)])
+        with contextlib.redirect_stdout(cli):
+            TT.main(["--arch", "xlstm-350m", "--smoke", "--steps", "4", "--batch", "4",
+                     "--seq", "32", "--hapm-sparsity", "0.25", "--hapm-epochs", "2",
+                     "--log-every", "1", "--device", str(device)])
+        train_row, p32, params, cfg = phase_lm_train_full(device, card)
+        cfg32 = dataclasses.replace(cfg, dtype="float32")
+        wi_in = lm_wi_operands(p32, cfg32, device)
+        ran = lm_wi_path(wi_in)
+        sync(device)
+        launched = kernels.launch_counts()
+        path_s = time.time() - t0
+        checks = phase_lm_train_checks(p32, params, cfg, device)
+        del params
+        wi = phase_lm_wi_kernels(wi_in, ran, device, 10, worst)
+        del p32, ran, wi_in
+        dry = finish_dryruns(procs)
+    finally:
+        stop_dryruns(procs)
+    emit("lm_train", card=card, seconds=time.time() - t0, path_seconds=path_s,
+         launches=launched, smoke=smoke,
+         example={"loss": example["loss"], "sparsity": example["sparsity"],
+                  "kernel_vs_masked_dense": example["err"],
+                  "skipped_tiles": example["skipped_tiles"],
+                  "printed": printed.getvalue().splitlines()[-3:]},
+         cli=cli.getvalue().splitlines(), full=train_row, checks=checks, wi=wi, dryrun=dry)
+    return launched, wi
+
+
 def kernels_line(paths, worst, rep, rep_gw, rep_i8, by_mode, k1_by_mode):
     """The ``kernels`` list of the last-but-one line: every ported kernel at
     its representative shape, with its launches on each main path
@@ -2791,6 +3303,13 @@ def main(argv=None) -> int:
     if not args.baseline or os.path.exists(lm_front):
         paths["lm_recurrent"] = phase_lm_recurrent(card, device)
 
+    # ---- main path 10, LM training, the pruned FFN on K1 and K3, the dry-run
+    # (counts reset inside, just before it runs)
+    lm_train = os.path.join(ROOT, "src", "repro_torch", "launch", "train.py")
+    wi_rows = {}
+    if not args.baseline or os.path.exists(lm_train):
+        paths["lm_train"], wi_rows = phase_lm_train(card, device, worst)
+
     for path, counts in paths.items():
         for kname in PATH_KERNELS[path]:
             if counts[kname] < 1:
@@ -2808,6 +3327,9 @@ def main(argv=None) -> int:
                  "bound_ms": lv["bound_ms"],
                  "bound_by": lv["bound_by"], "library_ms": lv["matmul_device_ms"],
                  "max_abs_err": lv["max_abs_err_vs_plain"]} for t, lv in paper_levels.items()}
+    for line in lines:
+        if line["name"] in ("block_sparse_matmul", "block_sparse_grad_weight"):
+            line["lm_ffn_wi"] = {k: r for k, r in wi_rows.items() if r["kernel"] == line["name"]}
     print(json.dumps({"kernels": lines}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -101,7 +101,7 @@ def hapm_epoch_update(
                                                 masks_flat)):
         if not isinstance(spec, GroupSpec):
             continue
-        sc = sc.detach().cpu().numpy().astype(np.float64)
+        sc = sc.detach().float().cpu().numpy().astype(np.float64)   # bf16 exact in f32
         if config.score == "mean_abs":
             sc = sc / np.maximum(spec.group_elem_counts(), 1)
         if not np.isfinite(sc).all():

@@ -8,9 +8,11 @@ Both are organized as in the JAX package: a loop over super-blocks, and
 inside it the homogeneous stack, whose stacked leaves carry the layer as
 their leading dim (``params["mamba"]`` is ``(n_super, every, ...)``), so
 ``dist.param_specs`` maps one to one. Where JAX runs ``lax.scan`` over the
-stack, the port loops in Python, indexing the layer; caches stay stacked
-per application. ``cfg.remat`` and ``cfg.scan_unroll`` (rematerialization
-and the scan's unroll in the JAX package) have no effect on it.
+stack, the port loops over its layers in Python (``_unstack``); caches stay
+stacked per application. ``cfg.remat`` rematerializes each Mamba and mLSTM layer
+in training, as the JAX package wraps those scan bodies (the shared
+attention block and the sLSTM block run outside it there too);
+``cfg.scan_unroll`` (the scan's unroll in the JAX package) has no effect.
 """
 from __future__ import annotations
 
@@ -18,15 +20,14 @@ from typing import Any, Optional, Tuple
 
 import torch
 
-from ..core.masks import tree_leaves
 from ..dist.api import constrain
 from .cnn import resolve_device
 from .lm_config import LMConfig
 from . import layers as L
 from . import ssm as SSM
 from . import xlstm as XL
-from .transformer import (_dtype, _layer, _stack, block_apply, block_init, generator,
-                          stack_init, unembed)
+from .transformer import (_dtype, _layer, _remat, _stack, _unstack, block_apply,
+                          block_init, generator, stack_init, unembed)
 
 PyTree = Any
 
@@ -40,11 +41,15 @@ def _run_stack(apply, stack: PyTree, states: Optional[PyTree], x, cfg: LMConfig)
     """Apply each layer of ``stack`` in turn (a residual block each), with
     its slice of ``states`` when given; returns (x, the new states stacked
     like ``states``, or None)."""
-    n = tree_leaves(stack)[0].shape[0]
     new = []
-    for i in range(n):
-        out, nst = apply(_layer(stack, i), x, cfg, None if states is None else _layer(states, i))
-        x = x + out
+
+    def layer(x, p, st):
+        out, nst = apply(p, x, cfg, st)
+        return x + out, nst
+
+    body = _remat(layer, cfg)
+    for i, layer_params in enumerate(_unstack(stack)):
+        x, nst = body(x, layer_params, None if states is None else _layer(states, i))
         new.append(nst)
     return x, (None if states is None else _stack(new))
 
@@ -98,9 +103,9 @@ def hybrid_forward(
     decode = caches is not None
     new_caches: Optional[dict] = {"mamba": [], "attn": [], "mamba_tail": None} if decode else None
 
-    for si in range(n_super):
+    for si, mamba in enumerate(_unstack(params["mamba"])):
         st = _layer(caches["mamba"], si) if decode else None
-        x, nst = _run_stack(SSM.mamba_apply, _layer(params["mamba"], si), st, x, cfg)
+        x, nst = _run_stack(SSM.mamba_apply, mamba, st, x, cfg)
         ac = _layer(caches["attn"], si) if decode else None
         x, nac, _ = block_apply(params["shared_attn"], x, cfg, positions,
                                 cfg.sliding_window, ac, 0)
@@ -192,11 +197,12 @@ def xlstm_forward(
     decode = caches is not None
     new_caches = {"mlstm": [], "slstm": []} if decode else None
 
-    for gi in range(n_groups):
+    for gi, (mlstm, slstm) in enumerate(zip(_unstack(params["mlstm"]),
+                                            _unstack(params["slstm"]))):
         st = _layer(caches["mlstm"], gi) if decode else None
-        x, nst = _run_stack(XL.mlstm_block_apply, _layer(params["mlstm"], gi), st, x, cfg)
+        x, nst = _run_stack(XL.mlstm_block_apply, mlstm, st, x, cfg)
         sc = _layer(caches["slstm"], gi) if decode else None
-        out, nsc = XL.slstm_block_apply(_layer(params["slstm"], gi), x, cfg, state=sc)
+        out, nsc = XL.slstm_block_apply(slstm, x, cfg, state=sc)
         x = x + out
         if decode:
             new_caches["mlstm"].append(nst)

@@ -153,7 +153,6 @@ def attention_core_chunked(
     Sk, Kv = k.shape[1], k.shape[2]
     if Sk % chunk:
         chunk = Sk  # fallback (small/odd shapes)
-    nc = Sk // chunk
     Hq = H // Kv
     qh = q.reshape(B, Sq, Kv, Hq, hd).permute(0, 2, 3, 1, 4)      # (B,Kv,Hq,Sq,hd)
     qh = qh.float() / math.sqrt(hd)
@@ -161,9 +160,9 @@ def attention_core_chunked(
     m = torch.full((B, Kv, Hq, Sq), -math.inf, dtype=torch.float32, device=q.device)
     l = torch.zeros((B, Kv, Hq, Sq), dtype=torch.float32, device=q.device)
     acc = torch.zeros((B, Kv, Hq, Sq, hd), dtype=torch.float32, device=q.device)
-    for c in range(nc):
-        sl = slice(c * chunk, (c + 1) * chunk)
-        kci, vci, kpi = k[:, sl], v[:, sl], k_pos[:, sl]
+    # ``split``: one backward for all chunks, not a slice of the whole K/V each
+    for kci, vci, kpi in zip(k.split(chunk, dim=1), v.split(chunk, dim=1),
+                             k_pos.split(chunk, dim=1)):
         s = torch.einsum("bkgqh,bskh->bkgqs", qh, kci.float())
         if softcap:
             s = torch.tanh(s / softcap) * softcap

@@ -81,9 +81,10 @@ def ssd_chunked(
     carry = (torch.zeros((B, H, N, P), dtype=f32, device=x.device) if init_state is None
              else init_state.to(f32))
     entering = []                                              # state *entering* each chunk
-    for c in range(nc):
+    # one backward for all chunks: ``unbind``, not an index per chunk
+    for st_c, decay_c in zip(states.unbind(1), chunk_decay.unbind(1)):
         entering.append(carry)
-        carry = states[:, c] + chunk_decay[:, c][..., None, None] * carry
+        carry = st_c + decay_c[..., None, None] * carry
     prev_states = torch.stack(entering, dim=1)                 # (B,nc,H,N,P)
 
     y_off = torch.einsum("bnlhm,bnhmp,bnlh->bnlhp", Ch, prev_states, torch.exp(cum))

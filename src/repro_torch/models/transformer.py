@@ -9,10 +9,12 @@ stacked parameter tree per homogeneous layer stack:
 Params are nested dicts of tensors whose stacked leaves carry the layer
 as their leading dim, as in the JAX package, so ``dist.param_specs`` maps
 one to one and JAX's weights carry across with no reshaping
-(``lm.params_from_numpy``). ``forward`` loops over the stack in Python,
-indexing the layer, where the JAX package runs ``lax.scan``; ``cfg.remat``
-(rematerialization in training) has no effect on it. The serving entry
-points (``prefill``, ``decode_step``) are ``models/lm.py``'s, as in the JAX
+(``lm.params_from_numpy``). ``forward`` loops over the stack's layers in
+Python (``_unstack``), where the JAX package runs ``lax.scan``. ``cfg.remat``
+rematerializes each layer (a ``(local, global)`` pair) in training, as the
+JAX package's ``_remat`` wraps the scan body (:func:`_remat`); a forward
+that records no gradient runs as it is. The serving entry points
+(``prefill``, ``decode_step``) are ``models/lm.py``'s, as in the JAX
 package.
 """
 from __future__ import annotations
@@ -21,6 +23,7 @@ from typing import Any, Optional, Tuple, Union
 
 import numpy as np
 import torch
+from torch.utils import checkpoint as CP
 
 from ..core.masks import tree_leaves, tree_map, tree_map_with_path
 from ..dist.api import constrain
@@ -42,6 +45,16 @@ def _stack(trees: list) -> PyTree:
 
 def _layer(stacked: PyTree, i: int) -> PyTree:
     return tree_map(lambda t: t[i], stacked)
+
+
+def _unstack(stacked: PyTree) -> list:
+    """The layers of a stacked tree, as views. ``unbind`` has one backward
+    for the whole stack (the layers' gradients stacked once); indexing
+    layer by layer would give each layer a gradient of the whole stack."""
+    is_parts = lambda x: isinstance(x, tuple)
+    parts = tree_map(lambda t: t.unbind(0), stacked)
+    n = len(tree_leaves(parts, is_leaf=is_parts)[0])
+    return [tree_map(lambda ts: ts[i], parts, is_leaf=is_parts) for i in range(n)]
 
 
 def generator(seed, dev: torch.device):
@@ -124,6 +137,32 @@ def init(seed: Union[int, torch.Generator], cfg: LMConfig, device=None) -> PyTre
 # Forward (train / prefill / decode) — caches optional
 # ---------------------------------------------------------------------------
 
+# the weight products: ``x @ w`` of a (..., K) activation and a (K, N)
+# weight folds the leading dims into one ``mm``; attention's products carry
+# batch dims (``bmm``) and are recomputed
+_SAVED_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _dots_saveable(ctx, op, *args, **kwargs):
+    P = CP.CheckpointPolicy
+    return P.MUST_SAVE if op in _SAVED_DOTS else P.PREFER_RECOMPUTE
+
+
+def _remat(fn, cfg: LMConfig):
+    """``fn`` (one layer) under ``cfg.remat`` when autograd records it: the
+    backward recomputes the layer from its inputs (``"full"``,
+    ``torch.utils.checkpoint``), or keeps the outputs of the weight
+    products and recomputes the rest (``"dots"``: what JAX's
+    ``dots_with_no_batch_dims_saveable`` keeps); ``"none"`` keeps every
+    activation autograd saves."""
+    if cfg.remat == "none" or not torch.is_grad_enabled():
+        return fn
+    kw = {"use_reentrant": False, "preserve_rng_state": False}   # the layers draw nothing
+    if cfg.remat == "dots":
+        kw["context_fn"] = lambda: CP.create_selective_checkpoint_contexts(_dots_saveable)
+    return lambda *args: CP.checkpoint(fn, *args, **kw)
+
+
 def embed_inputs(params, batch, cfg: LMConfig):
     """tokens and/or precomputed frontend embeddings -> (x, prefix_len)."""
     dt = _dtype(cfg)
@@ -154,12 +193,21 @@ def _run_stack(stack, caches, x, cfg, positions, windows, prefix_len, auxs):
     """Run the layers of ``stack`` (one stacked tree per flavor, applied in
     turn within a layer index: ``(local, global)`` pairs or one block) on
     ``x``; returns (x, the new caches stacked like ``caches``)."""
-    n = tree_leaves(stack[0])[0].shape[0]
+    layers = [_unstack(st) for st in stack]
     new = [[] for _ in stack]
-    for i in range(n):
-        for j, (st, window) in enumerate(zip(stack, windows)):
-            c = None if caches is None else _layer(caches[j], i)
-            x, nc, aux = block_apply(_layer(st, i), x, cfg, positions, window, c, prefix_len)
+
+    def layer(x, layers, cs):
+        out = []
+        for p, window, c in zip(layers, windows, cs):
+            x, nc, aux = block_apply(p, x, cfg, positions, window, c, prefix_len)
+            out.append((nc, aux))
+        return x, out
+
+    body = _remat(layer, cfg)
+    for i in range(len(layers[0])):
+        cs = [None] * len(stack) if caches is None else [_layer(c, i) for c in caches]
+        x, out = body(x, [ls[i] for ls in layers], cs)
+        for j, (nc, aux) in enumerate(out):
             new[j].append(nc)
             auxs.append(aux)
     if caches is None:

@@ -176,6 +176,16 @@ def _slstm_cell(carry, wx, r):
     return (c, n, h, m_new)
 
 
+def slstm_scan(carry, wx, r):
+    """The recurrence over a sequence, one token at a time: wx (B,S,4,H,hd)
+    -> (h of every token (B,S,H,hd), the final carry)."""
+    hs = []
+    for wx_t in wx.unbind(1):       # one backward for all tokens (see ``_unstack``)
+        carry = _slstm_cell(carry, wx_t, r)
+        hs.append(carry[2])
+    return torch.stack(hs, dim=1), carry
+
+
 def slstm_block_apply(p, x, cfg: LMConfig, state=None):
     """Two branches: a loop over the sequence (training, or a prefill that
     returns the final state) and one step (decode)."""
@@ -191,11 +201,8 @@ def slstm_block_apply(p, x, cfg: LMConfig, state=None):
                           for _ in range(4))
         else:
             carry = (state["c"], state["n"], state["h"], state["m"])
-        hs = []
-        for t in range(S):
-            carry = _slstm_cell(carry, wx[:, t], p["r"])
-            hs.append(carry[2])
-        h = torch.stack(hs, dim=1).reshape(B, S, D).to(x.dtype)
+        h, carry = slstm_scan(carry, wx, p["r"])
+        h = h.reshape(B, S, D).to(x.dtype)
         new_state = None if state is None else {
             "c": carry[0], "n": carry[1], "h": carry[2], "m": carry[3]}
     else:

@@ -6,7 +6,8 @@ the JAX package stores them: the same tree saves to the same file names and
 keys (``"|"``-joined dict keys, sorted; sequence indices; named-tuple
 field names), so a checkpoint written by either package restores in the
 other. Tensors are saved from the host; :func:`restore` returns numpy
-arrays, or tensors on ``device`` when one is given. Only rank 0 of an
+arrays, or tensors on ``device`` when one is given (a bf16 leaf is stored
+as its bits, 2-byte voids, as in the JAX package's files). Only rank 0 of an
 initialized ``torch.distributed`` group writes. SIGTERM-triggered emergency
 saves via ``install_signal_save``.
 """
@@ -58,10 +59,25 @@ def _rebuild(node, children):
     return type(node)(values)
 
 
+# numpy has no bf16: a bf16 leaf is stored as its bits, 2-byte voids, which
+# is how the JAX package's npz holds one (``np.asarray`` of a bf16 array)
+_BF16_BITS = np.dtype("V2")
+
+
 def _to_numpy(leaf) -> np.ndarray:
     if isinstance(leaf, torch.Tensor):
-        return leaf.detach().cpu().numpy()
+        t = leaf.detach().cpu()
+        if t.dtype == torch.bfloat16:
+            return t.view(torch.int16).numpy().view(_BF16_BITS)
+        return t.numpy()
     return np.asarray(leaf)
+
+
+def _to_tensor(a: np.ndarray) -> torch.Tensor:
+    """A stored array as a tensor (bf16 from its stored bits)."""
+    if a.dtype == _BF16_BITS:
+        return torch.from_numpy(np.array(a.view(np.int16), copy=True)).view(torch.bfloat16)
+    return torch.from_numpy(np.array(a, copy=True))
 
 
 def _flatten(tree: PyTree) -> dict:
@@ -233,7 +249,7 @@ def restore(ckpt_dir: str, skeleton: PyTree, step: Optional[int] = None,
     raises :class:`CorruptCheckpointError`."""
     flat, meta = _read_flat(ckpt_dir, step)
     place = None if device is None else (
-        lambda a: torch.from_numpy(np.array(a, copy=True)).to(device))
+        lambda a: _to_tensor(a).to(device))
     tree = _unflatten_into(skeleton, flat, place)
     if sharding_fn is not None:
         from torch.distributed.tensor import distribute_tensor
@@ -244,7 +260,7 @@ def restore(ckpt_dir: str, skeleton: PyTree, step: Optional[int] = None,
             sh = sharding_fn(path, a)
             if sh is None:
                 return a
-            t = a if isinstance(a, torch.Tensor) else torch.from_numpy(np.array(a, copy=True))
+            t = a if isinstance(a, torch.Tensor) else _to_tensor(a)
             return distribute_tensor(t.to(sh.mesh.device_type), sh.mesh, sh.placements)
 
         tree = tree_map_with_path(lay_out, tree)

@@ -42,7 +42,9 @@ family, which launches none of these kernels: each smoke config's logits on
 the card against the CPU, the KV ring buffer at a prefill longer than its
 window, ``moe_manual_tp`` through a one-rank NCCL group, and ``prefetch``'s
 copy-stream ordering on 256 MB batches; and the event-timed fallback of
-the bench timers against the profiler. Marked ``gpu``: skipped (with a
+the bench timers against the profiler; and the block-sparse matmul and the
+weight gradient at an LM's FFN shape (mistral-nemo-12b's 5120 x 14336
+``ffn/wi`` on 2048 rows, half its tiles live) forward and backward. Marked ``gpu``: skipped (with a
 reason, decided inside a fixture) on a machine without a CUDA device, run
 on one with
 
@@ -782,6 +784,56 @@ def test_grad_weight_scatter_on_gpu_dead_tiles_zero(dev, block):
     want = x.T @ g
     assert float((dw[~dead] - want[~dead]).abs().max()) <= 1e-4 * float(
         (x.abs().T @ g.abs()).max())
+
+
+# mistral-nemo-12b's ffn/wi (d_model x d_ff) on 2048 rows, (128, 128) tiles
+LM_WI = (2048, 5120, 14336)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_block_sparse_matmul_and_grad_weight_at_the_lm_wi_shape(dev, dtype):
+    """K1 (forward, and dX on the transposed plan) and K3 (dW) through
+    ``make_block_sparse_matmul`` at the shape of an LM's FFN input weight:
+    40 x 112 tiles, half of them live, 2048 rows; each against its plain
+    version on the same CUDA operands (f32 1e-4 x max(1, max |want|), dW 1e-4
+    x max(|x|ᵀ|g|), bf16 one ulp of the largest output); pruned tiles' dW
+    bitwise 0."""
+    M, K, N = LM_WI
+    block = (128, 128)
+    rs = np.random.RandomState(27)
+    tm = rs.rand(K // 128, N // 128) < 0.5
+    plan = TB.plan_from_tile_mask(tm, block)
+    t_plan = TB.transpose_plan(plan, tm)
+    x = torch.from_numpy(rs.randn(M, K).astype(np.float32)).to(dev).to(dtype)
+    w = torch.from_numpy((rs.randn(K, N) / np.sqrt(K)).astype(np.float32)).to(dev).to(dtype)
+    g = torch.from_numpy(rs.randn(M, N).astype(np.float32)).to(dev).to(dtype)
+    xr, wr = x.clone().requires_grad_(), w.clone().requires_grad_()
+    k1, k3 = BSM.launch_count(), BSM.grad_weight_launch_count()
+    y = OPS.make_block_sparse_matmul(plan, tm)(xr, wr)
+    y.backward(g)
+    torch.cuda.synchronize()
+    assert BSM.launch_count() == k1 + 2 and BSM.grad_weight_launch_count() == k3 + 1
+    t = lambda a: torch.from_numpy(a).to(dev)
+    live = np.argwhere(tm)
+    kk, nn = t(live[:, 0].astype(np.int32)), t(live[:, 1].astype(np.int32))
+    want_y = BSM.block_sparse_matmul_plain(x, w, t(plan.idx), t(plan.cnt), block=block, bm=128)
+    want_dx = BSM.block_sparse_matmul_plain(g, w.t().contiguous(), t(t_plan.idx),
+                                            t(t_plan.cnt), block=t_plan.block, bm=128)
+    compact = BSM.block_sparse_grad_weight_plain(x.float(), g.float(), kk, nn, block=block,
+                                                 bm=128)
+    dw = torch.zeros((K // 128, N // 128, 128, 128), device=dev)
+    dw[kk.long(), nn.long()] = compact
+    want_dw = dw.permute(0, 2, 1, 3).reshape(K, N).to(dtype)
+    scale_dw = float((x.float().abs().t() @ g.float().abs()).max())
+    for got, want, f32_bar in ((y, want_y, 1e-4 * max(1.0, float(want_y.abs().max()))),
+                               (xr.grad, want_dx, 1e-4 * max(1.0, float(want_dx.abs().max()))),
+                               (wr.grad, want_dw, 1e-4 * scale_dw)):
+        assert got.dtype == dtype and got.shape == want.shape
+        bar = f32_bar if dtype == torch.float32 else 2.0 ** -7 * float(want.abs().max())
+        err = float((got.double() - want.double()).abs().max())
+        assert err <= bar, (err, bar)
+    dead = ~torch.from_numpy(np.kron(tm, np.ones(block, bool))).to(dev)
+    assert bool((wr.grad[dead] == 0).all())
 
 
 def test_grad_weight_wrapper_refusals(dev):

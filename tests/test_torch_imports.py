@@ -26,32 +26,39 @@ def _imported_roots(path: pathlib.Path):
             yield node.module.split(".")[0], node.lineno
 
 
+# modules of the JAX package with no twin, on purpose
+NOT_PORTED = {"dist/compat.py": "a shim over JAX versions' sharding APIs; PyTorch needs none"}
+# the examples' twins are entry points of the port
+EXAMPLE_TWINS = {"prune_lm_blocksparse.py": "launch/prune_lm_blocksparse.py",
+                 "quickstart.py": "launch/quickstart.py",
+                 "serve_lm.py": "launch/serve_lm.py",
+                 "train_cifar_hapm.py": "launch/train_cnn.py"}
+
+
 def test_port_has_its_modules():
+    """A walk of both packages: every module of ``src/repro`` has its twin
+    at the same path under ``src/repro_torch`` (but those in
+    ``NOT_PORTED``), every example its entry point, every bench and
+    ``run.py`` its ``_torch`` twin."""
     names = {str(p.relative_to(ROOT / "src" / "repro_torch")) for p in PORT_FILES}
-    for want in ("core/quant.py", "core/groups.py", "core/masks.py", "core/hapm.py",
-                 "sparse/block_mask.py", "sparse/conv_plan.py",
-                 "kernels/conv_lowering.py", "kernels/ref.py",
-                 "kernels/block_sparse_matmul.py", "kernels/implicit_conv.py",
-                 "kernels/ops.py", "models/cnn.py", "configs/resnet21_cifar.py",
-                 "launch/exec_cache.py", "launch/resilience.py",
-                 "launch/serve_cnn.py", "launch/train_cnn.py", "core/uniform.py",
-                 "data/synthetic.py", "train/optimizer.py", "train/compression.py",
-                 "train/loop.py", "train/checkpoint.py", "train/cnn_training.py",
-                 "accel/config.py", "accel/cycle_model.py", "accel/scheduler.py",
-                 "accel/simulator.py", "kernels/int8_matmul.py",
-                 "launch/quickstart.py", "dist/__init__.py", "dist/api.py",
-                 "dist/sharding.py", "launch/mesh.py", "data/pipeline.py",
-                 "train/elastic.py", "models/lm_config.py", "models/layers.py",
-                 "models/moe.py", "models/transformer.py", "models/frontends.py",
-                 "configs/registry.py", *(f"configs/{a}.py" for a in COPIED_CONFIGS),
-                 "models/ssm.py", "models/xlstm.py", "models/hybrid.py", "models/lm.py",
-                 "configs/shapes.py", "launch/serve.py", "launch/serve_lm.py"):
-        assert want in names, want
+    reference = {str(p.relative_to(ROOT / "src" / "repro"))
+                 for p in (ROOT / "src" / "repro").rglob("*.py")}
+    assert reference - names == set(NOT_PORTED)
+    assert not set(NOT_PORTED) & names
+    examples = {p.name for p in (ROOT / "examples").glob("*.py")}
+    assert examples == set(EXAMPLE_TWINS)
+    assert set(EXAMPLE_TWINS.values()) <= names
     twins = {p.name for p in TWIN_FILES}
-    assert {"bench_sparse_cnn_torch.py", "check_sparse_regression_torch.py",
-            "bench_serving_cnn_torch.py", "bench_cycle_model_torch.py",
-            "bench_training_torch.py", "bench_inference_torch.py",
-            "bench_blocksparse_torch.py", "run_torch.py"} <= twins
+    benches = {p.stem for p in (ROOT / "benchmarks").glob("bench_*.py")
+               if not p.stem.endswith("_torch")}
+    assert {"bench_roofline", "bench_blocksparse"} <= benches
+    assert {f"{b}_torch.py" for b in benches} | {"run_torch.py",
+                                                 "check_sparse_regression_torch.py"} <= twins
+    assert "train/cnn_training.py" in names      # the twin of benchmarks/cnn_training.py
+    for want in ("launch/train.py", "launch/analysis.py", "launch/dryrun.py",
+                 "models/lm.py", "configs/shapes.py",
+                 *(f"configs/{a}.py" for a in COPIED_CONFIGS)):
+        assert want in names, want
 
 
 COPIED_CONFIGS = ("gemma2_9b", "gemma_7b", "granite_moe_3b_a800m", "mistral_nemo_12b",
