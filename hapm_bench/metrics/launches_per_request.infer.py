@@ -1,0 +1,8 @@
+"""Device operations (kernels, copies, memsets) per request in the traced
+window."""
+
+
+def read(c):
+    if c.summary is None or not c.units or not c.summary["device"]:
+        return None
+    return len(c.summary["device"]) / c.units
