@@ -1,7 +1,8 @@
 """Hand-written CUDA kernels (sources under ``repro_torch/csrc``), their
 Python wrappers, and a plain PyTorch version of each.
 
-Every wrapper keeps a launch count — a plain integer that grows by one
+Every wrapper keeps a launch count — the port's recorder's counter
+``kernel.<name>.launches`` (``repro_torch.tracing``), which grows by one
 where the wrapper launches its CUDA kernel and nowhere else — so a run
 can show that it really went through the kernels; ``profile_device_records``
 gives the device time a call puts on the card and how many records the

@@ -40,6 +40,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from .. import tracing
 from ..core.quant import round_sat
 from . import _build
 from .ref import int_matmul_exact
@@ -66,30 +67,28 @@ GRAD_W_SLICE_M = 32
 GRAD_W_BLOCKS_PER_SM = 2
 GRAD_W_MIN_CHUNK = 128
 
-_launches = 0
-_grad_w_launches = 0
+LAUNCHES = "kernel.block_sparse_matmul.launches"
+GRAD_W_LAUNCHES = "kernel.block_sparse_grad_weight.launches"
 
 
 def launch_count() -> int:
     """CUDA launches of :func:`block_sparse_matmul`'s kernel since the last
-    reset."""
-    return _launches
+    reset (the recorder's ``kernel.block_sparse_matmul.launches``)."""
+    return tracing.counter(LAUNCHES)
 
 
 def reset_launch_count() -> None:
-    global _launches
-    _launches = 0
+    tracing.reset(LAUNCHES)
 
 
 def grad_weight_launch_count() -> int:
     """CUDA launches of :func:`block_sparse_grad_weight`'s kernel since the
-    last reset."""
-    return _grad_w_launches
+    last reset (the recorder's ``kernel.block_sparse_grad_weight.launches``)."""
+    return tracing.counter(GRAD_W_LAUNCHES)
 
 
 def reset_grad_weight_launch_count() -> None:
-    global _grad_w_launches
-    _grad_w_launches = 0
+    tracing.reset(GRAD_W_LAUNCHES)
 
 
 # --- shared epilogue contract (also consumed by kernels.implicit_conv) ----
@@ -151,8 +150,10 @@ def epilogue_rows(n: int, device, **rows):
 def live_columns_by_tile(idx, cnt):
     """{K-tile id: [output columns j that visit it]} from the dispatch
     table, tiles in ascending order (host-side)."""
-    idx_h = idx.detach().cpu().numpy()
-    cnt_h = cnt.detach().cpu().numpy()
+    # a read of the device's table waits for the device; a CPU table is no read
+    with tracing.span("host.sync", what="live_columns_by_tile") if idx.is_cuda else tracing.OFF:
+        idx_h = idx.detach().cpu().numpy()
+        cnt_h = cnt.detach().cpu().numpy()
     by_tile: dict = {}
     for j in range(idx_h.shape[0]):
         for s in range(int(cnt_h[j])):
@@ -254,7 +255,6 @@ def block_sparse_matmul(
         return block_sparse_matmul_plain(x, w, idx, cnt, bias, scale,
                                          out_scale, block=block, bm=bm,
                                          relu=relu, x_lanes=x_lanes)
-    global _launches
     M, K, N, bk, bn = _check_operands(x, w, idx, cnt, block, bm)
     lanes = _lane_count("x_lanes", x_lanes, bk)
     _, out_dtype = quantized_contract(x, w, scale, out_scale)
@@ -286,7 +286,7 @@ def block_sparse_matmul(
             DTYPE_CODES[x.dtype], int(relu), lanes,
             torch.cuda.current_stream(dev).cuda_stream)
     _build.check_launch(err, "block_sparse_matmul")
-    _launches += 1
+    tracing.count(LAUNCHES)
     return out
 
 
@@ -413,7 +413,6 @@ def block_sparse_grad_weight(
     two launches on the same inputs give the same bits."""
     if not x.is_cuda:
         return block_sparse_grad_weight_plain(x, g, kk, nn, block=block, bm=bm)
-    global _grad_w_launches
     M, K, N, bk, bn, L = _check_grad_operands(x, g, kk, nn, block, bm)
     if x.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"block_sparse_grad_weight kernel takes f32/bf16 "
@@ -442,8 +441,9 @@ def block_sparse_grad_weight(
     if M == 0:
         return out.zero_()
     if stacks is None:
-        stacks = torch.from_numpy(grad_weight_stacks(
-            kk.cpu().numpy(), nn.cpu().numpy(), bk)).to(dev)
+        with tracing.span("host.sync", what="grad_weight_stacks"):
+            kk_h, nn_h = kk.cpu().numpy(), nn.cpu().numpy()
+        stacks = torch.from_numpy(grad_weight_stacks(kk_h, nn_h, bk)).to(dev)
     x, g, kk, nn, stacks = (t.contiguous() for t in (x, g, kk, nn, stacks))
     n_stacks = stacks.shape[0]
     S, chunk = grad_weight_split(
@@ -458,5 +458,5 @@ def block_sparse_grad_weight(
             out.data_ptr(), M, K, N, bk, bn, lanes, L, n_stacks, width, S, chunk,
             DTYPE_CODES[x.dtype], torch.cuda.current_stream(dev).cuda_stream)
     _build.check_launch(err, "block_sparse_grad_weight")
-    _grad_w_launches += 1
+    tracing.count(GRAD_W_LAUNCHES)
     return out

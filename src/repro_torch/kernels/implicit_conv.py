@@ -53,6 +53,7 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from .. import tracing
 from . import _build
 from .block_sparse_matmul import (DTYPE_CODES, KERNEL_MAX_BM, KERNEL_MAX_BN,
                                   epilogue_rows, flush_epilogue,
@@ -75,17 +76,17 @@ SLAB_VMEM_BUDGET = 2 * 1024 * 1024
 CARD_SHARED_BYTES = 232448
 _BESIDE_WINDOW_BYTES = 16 * 1024
 
-_launches = 0
+LAUNCHES = "kernel.implicit_block_sparse_conv.launches"
 
 
 def launch_count() -> int:
-    """CUDA launches of this module's kernel since the last reset."""
-    return _launches
+    """CUDA launches of this module's kernel since the last reset (the
+    recorder's ``kernel.implicit_block_sparse_conv.launches``)."""
+    return tracing.counter(LAUNCHES)
 
 
 def reset_launch_count() -> None:
-    global _launches
-    _launches = 0
+    tracing.reset(LAUNCHES)
 
 
 def _ceil_to(n: int, m: int) -> int:
@@ -325,7 +326,6 @@ def implicit_block_sparse_conv(
             xp, w, idx, cnt, bias, scale, out_scale, kx=kx, ky=ky,
             stride=stride, mb=mb, block=block, cpk=cpk, slot=slot, relu=relu,
             activation_dsb=activation_dsb, count_skips=count_skips)
-    global _launches
     rows, cols, nNb = _check_operands(xp, w, idx, cnt, kx, ky, stride, mb,
                                       block, cpk, activation_dsb)
     B, Hp, Wp, Cp = xp.shape
@@ -370,5 +370,5 @@ def implicit_block_sparse_conv(
             int(relu), int(activation_dsb),
             torch.cuda.current_stream(dev).cuda_stream)
     _build.check_launch(err, "implicit_block_sparse_conv")
-    _launches += 1
+    tracing.count(LAUNCHES)
     return (out, skips) if count_skips else out

@@ -27,6 +27,7 @@ import ctypes
 
 import torch
 
+from .. import tracing
 from . import _build
 from .ref import int_matmul_exact
 
@@ -36,17 +37,17 @@ from .ref import int_matmul_exact
 KERNEL_MAX_BM = 128
 KERNEL_MAX_BN = 128
 
-_launches = 0
+LAUNCHES = "kernel.int8_matmul.launches"
 
 
 def launch_count() -> int:
-    """CUDA launches of :func:`int8_matmul`'s kernel since the last reset."""
-    return _launches
+    """CUDA launches of :func:`int8_matmul`'s kernel since the last reset
+    (the recorder's ``kernel.int8_matmul.launches``)."""
+    return tracing.counter(LAUNCHES)
 
 
 def reset_launch_count() -> None:
-    global _launches
-    _launches = 0
+    tracing.reset(LAUNCHES)
 
 
 def _check(x_codes, w_codes, scale, bm, bk, bn):
@@ -102,7 +103,6 @@ def int8_matmul(
     synchronize) or raises; a CPU ``x_codes`` runs :func:`int8_matmul_plain`."""
     if not x_codes.is_cuda:
         return int8_matmul_plain(x_codes, w_codes, scale, bm=bm, bk=bk, bn=bn)
-    global _launches
     M, K, N, scale = _check(x_codes, w_codes, scale, bm, bk, bn)
     if bm > KERNEL_MAX_BM or bn > KERNEL_MAX_BN:
         raise ValueError(f"int8_matmul kernel takes bm <= {KERNEL_MAX_BM} and "
@@ -120,7 +120,7 @@ def int8_matmul(
                                    scale.data_ptr(), out.data_ptr(), M, K, N, bm,
                                    bn, torch.cuda.current_stream(dev).cuda_stream)
     _build.check_launch(err, "int8_matmul")
-    _launches += 1
+    tracing.count(LAUNCHES)
     return out
 
 

@@ -55,6 +55,7 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from .. import tracing
 from ..core.masks import tree_leaves, tree_map
 from ..models import cnn
 from ..sparse.conv_plan import mask_fingerprint
@@ -74,6 +75,12 @@ def _fresh_resilience_counters() -> Dict[str, int]:
             "nonfinite_caught": 0, "mask_repairs": 0, "shed_overload": 0,
             "overload_downgrades": 0, "deadline_timeouts": 0,
             "promotions": 0}
+
+
+def _all_finite(y: torch.Tensor) -> bool:
+    """The non-finite guard: the request path's one wait for the device."""
+    with tracing.span("host.sync", what="finite_guard"):
+        return bool(torch.isfinite(y).all())
 
 
 class CnnServer:
@@ -449,7 +456,8 @@ class CnnServer:
                 level = self._degrade(level, "bind is quarantined")
                 continue
             try:
-                entry = self._entry_for(rung, bucket)
+                with tracing.span("serve.lookup"):
+                    entry = self._entry_for(rung, bucket)
             except cnn.BindError as e:
                 self.resilience["bind_failures"] += 1
                 if not (pol.allow_degrade and level + 1 < len(self._rungs)):
@@ -460,7 +468,7 @@ class CnnServer:
             y = entry.fn(x)
             if self.faults is not None:
                 y = self.faults.on_output(y)
-            if pol.check_finite and not bool(torch.isfinite(y).all()):
+            if pol.check_finite and not _all_finite(y):
                 self.resilience["nonfinite_caught"] += 1
                 if rung is not None:
                     self.cache.quarantine(self._key_for(rung))
@@ -490,10 +498,21 @@ class CnnServer:
         deadline. Oversized requests hit admission control first
         (``policy.max_request_images``): shed with
         :class:`OverloadError` or served one ladder rung down, per
-        ``policy.overload_action``."""
-        images = torch.as_tensor(images)
-        self._validate_images(images)
-        images = images.to(self.device)
+        ``policy.overload_action``.
+
+        While a profiler records, the request is the root span
+        ``serve.request`` of the port's recorder (``repro_torch.tracing``),
+        with ``serve.ingest`` and a ``serve.chunk`` a chunk below it."""
+        with tracing.span("serve.request", n=tracing.count("serve.requests")) as req:
+            with tracing.span("serve.ingest"):
+                images = torch.as_tensor(images)
+                self._validate_images(images)
+                images = images.to(self.device)
+            req.set(frames=int(images.shape[0]))
+            return self._infer(images, deadline_s)
+
+    def _infer(self, images: torch.Tensor, deadline_s: Optional[float]
+               ) -> torch.Tensor:
         pol = self.policy
         if deadline_s is None:
             deadline_s = pol.default_deadline_s
@@ -535,18 +554,19 @@ class CnnServer:
                         f"{n - lo} of {n} image(s) unserved at "
                         f"{elapsed:.3f}s of a {deadline_s}s deadline — "
                         "request shed, partial work discarded")
-            if chunk.shape[0] < bucket:
-                pad = torch.zeros((bucket - chunk.shape[0],) + tuple(chunk.shape[1:]),
-                                  dtype=chunk.dtype, device=chunk.device)
-                x = torch.cat([chunk, pad])
-            else:
-                x = chunk
-            t1 = time.monotonic()
-            y, level = self._run_chunk(x, bucket, level)
-            dt = time.monotonic() - t1
-            ema = self._svc_ema.get(bucket)
-            self._svc_ema[bucket] = dt if ema is None else 0.7 * ema + 0.3 * dt
-            out.append(y[:chunk.shape[0]])
+            with tracing.span("serve.chunk", bucket=bucket, frames=int(chunk.shape[0])):
+                if chunk.shape[0] < bucket:
+                    pad = torch.zeros((bucket - chunk.shape[0],) + tuple(chunk.shape[1:]),
+                                      dtype=chunk.dtype, device=chunk.device)
+                    x = torch.cat([chunk, pad])
+                else:
+                    x = chunk
+                t1 = time.monotonic()
+                y, level = self._run_chunk(x, bucket, level)
+                dt = time.monotonic() - t1
+                ema = self._svc_ema.get(bucket)
+                self._svc_ema[bucket] = dt if ema is None else 0.7 * ema + 0.3 * dt
+                out.append(y[:chunk.shape[0]])
         self.last_request_level = level
         self._note_clean_request(start_level, level, overload_downgraded)
         return out[0] if len(out) == 1 else torch.cat(out)

@@ -18,6 +18,7 @@ the CUDA block-sparse kernels. Entry points that allocate take a
 from __future__ import annotations
 
 import dataclasses
+import time
 from collections import OrderedDict
 from typing import Any, Optional, Tuple
 
@@ -25,6 +26,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from .. import tracing
 from ..accel.cycle_model import ConvLayerDims
 from ..core import quant as Q
 from ..core.groups import fpga_conv_groups
@@ -308,6 +310,11 @@ def apply(
     kernels: ``train=True`` is supported, gradients flow, pruned groups get
     exactly zero gradient. Rebind after each HAPM epoch either way.
     """
+    with tracing.span("cnn.forward", train=train):
+        return _apply(params, state, x, cfg, train, sparse)
+
+
+def _apply(params, state, x, cfg: ResNetConfig, train: bool, sparse):
     sparse = _resolve_sparse(sparse, params, cfg.quantized)
     if train and sparse is not None and not sparse.trainable:
         raise ValueError(
@@ -318,13 +325,13 @@ def apply(
             "epoch), or train dense")
 
     def conv(path, h, w, stride):
-        if sparse is not None:
-            fn = sparse.table.get(path)
-            if fn is not None:
-                if sparse.trainable:
-                    return fn(h, w, stride=stride)   # per-call weight
-                return fn(h, stride=stride)   # weight prepacked at bind time
-        return _conv(h, w, stride)
+        fn = sparse.table.get(path) if sparse is not None else None
+        with tracing.span("cnn.conv", layer=path, kernel=fn is not None):
+            if fn is None:
+                return _conv(h, w, stride)
+            if sparse.trainable:
+                return fn(h, w, stride=stride)   # per-call weight
+            return fn(h, stride=stride)   # weight prepacked at bind time
 
     # the accelerator ingests Q3.4 activations for every layer, the input
     # frame included — quantize it so the executed-int8 path can match the
@@ -349,10 +356,12 @@ def apply(
                 sc, ns["bnp"] = _bn(sc, blk["bnp"], st["bnp"], train, cfg)
             else:
                 sc = h
-            h = _maybe_qa(torch.relu(y + sc), cfg)
+            with tracing.span("cnn.residual", block=name):
+                h = _maybe_qa(torch.relu(y + sc), cfg)
             new_state[name] = ns
-    pooled = _global_avg_pool(h)
-    logits = pooled @ params["fc"]["w"] + params["fc"]["b"]
+    with tracing.span("cnn.head"):
+        pooled = _global_avg_pool(h)
+        logits = pooled @ params["fc"]["w"] + params["fc"]["b"]
     return logits, (new_state if train else state)
 
 
@@ -913,7 +922,22 @@ def bind_execution(
     params tree whose conv leaves differ (rebind after updates, or serve
     through ``launch.exec_cache`` which re-keys on the sparsity
     fingerprint).
+
+    Every call counts in the recorder's always-on counters ``cnn.binds`` and
+    ``cnn.bind_ns`` (its host time), and is the span ``cnn.bind``.
     """
+    t0 = time.perf_counter_ns()
+    try:
+        with tracing.span("cnn.bind"):
+            return _bind_execution(params, spec, specs, group_masks, quant_spec,
+                                   bind_kernels, device)
+    finally:
+        tracing.count("cnn.binds")
+        tracing.count("cnn.bind_ns", time.perf_counter_ns() - t0)
+
+
+def _bind_execution(params, spec, specs, group_masks, quant_spec, bind_kernels,
+                    device) -> SparseConvExec:
     from ..kernels.block_sparse_matmul import KERNEL_MAX_BM
     from ..sparse.conv_plan import make_sparse_conv
 
@@ -1158,7 +1182,11 @@ def apply_folded(
     kernel instead of inside — the bench gates their end-to-end code
     parity. The default float dataflow (f32 residual adds) is unchanged.
     """
+    with tracing.span("cnn.forward", train=False):
+        return _apply_folded(folded, x, cfg, sparse, wire_quantize)
 
+
+def _apply_folded(folded, x, cfg: ResNetConfig, sparse, wire_quantize):
     if sparse is not None and not sparse.folded:
         raise ValueError(
             "apply_folded needs a folded SparseConvExec (ExecSpec("
@@ -1185,17 +1213,18 @@ def apply_folded(
 
     def conv(path, h, stride, relu):
         fn = sparse.table.get(path) if sparse is not None else None
-        if fn is not None:
-            y = fn(h, stride=stride)      # bias/ReLU fused at bind time
-            if not wire or y.dtype == torch.int8:   # streamed: already codes
-                return y
-            return requant(y)             # wire reference: requantize here
-        node = _get_path(folded, path[:-1])
-        if h.dtype == torch.int8:           # fallback layer on the wire:
-            h = h.to(torch.float32) / wire_scale    # exact f32 dequant
-        y = _conv(h, node["w"], stride) + node["b"]
-        y = torch.relu(y) if relu else y
-        return requant(y) if wire else y
+        with tracing.span("cnn.conv", layer=path, kernel=fn is not None):
+            if fn is not None:
+                y = fn(h, stride=stride)      # bias/ReLU fused at bind time
+                if not wire or y.dtype == torch.int8:   # streamed: already codes
+                    return y
+                return requant(y)             # wire reference: requantize here
+            node = _get_path(folded, path[:-1])
+            if h.dtype == torch.int8:           # fallback layer on the wire:
+                h = h.to(torch.float32) / wire_scale    # exact f32 dequant
+            y = _conv(h, node["w"], stride) + node["b"]
+            y = torch.relu(y) if relu else y
+            return requant(y) if wire else y
 
     h = conv(("conv0", "w"), x, 1, relu=True)
     for si, n_blocks in enumerate(cfg.stages):
@@ -1207,14 +1236,16 @@ def apply_folded(
             y = conv((name, "conv2", "w"), y, 1, relu=False)
             sc = (conv((name, "proj", "w"), h, stride, relu=False)
                   if "proj" in blk else h)
-            if wire:
-                # residual add + ReLU on codes: int32 widen, clamp to the
-                # post-ReLU code range — exact integer arithmetic
-                h = torch.clamp(y.to(torch.int32) + sc.to(torch.int32),
-                                0, int(max_code)).to(torch.int8)
-            else:
-                h = torch.relu(y + sc)
-    if wire:
-        h = h.to(torch.float32) / wire_scale        # head: exact dequant
-    pooled = _global_avg_pool(h)
-    return pooled @ folded["fc"]["w"] + folded["fc"]["b"]
+            with tracing.span("cnn.residual", block=name):
+                if wire:
+                    # residual add + ReLU on codes: int32 widen, clamp to the
+                    # post-ReLU code range — exact integer arithmetic
+                    h = torch.clamp(y.to(torch.int32) + sc.to(torch.int32),
+                                    0, int(max_code)).to(torch.int8)
+                else:
+                    h = torch.relu(y + sc)
+    with tracing.span("cnn.head"):
+        if wire:
+            h = h.to(torch.float32) / wire_scale        # head: exact dequant
+        pooled = _global_avg_pool(h)
+        return pooled @ folded["fc"]["w"] + folded["fc"]["b"]

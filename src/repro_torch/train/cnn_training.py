@@ -25,6 +25,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from .. import tracing
 from ..core import (HAPMConfig, UniformPruneConfig, apply_masks, full_masks,
                     hapm_element_masks, hapm_epoch_update, hapm_init,
                     maybe_update)
@@ -62,13 +63,21 @@ def _loss_fn(params, state, batch, cfg, sparse=None):
 
 
 def _sgd_step(params, state, opt_state, masks, batch, lr, cfg, sparse=None):
-    mp = apply_masks(params, masks)
-    (loss, new_state), grads = value_and_grad(_loss_fn, mp, state, batch, cfg,
-                                              sparse)
-    _, opt_update = sgd(momentum=0.9, weight_decay=1e-4)
-    updates, opt_state = opt_update(grads, opt_state, params, lr)
-    params = apply_masks(apply_updates(params, updates), masks)
-    return params, new_state, opt_state, loss
+    """One SGD step; while a profiler records, the root span ``sgd.step`` of
+    the port's recorder with ``sgd.mask``, ``grad.forward``,
+    ``grad.backward``, ``sgd.update`` and ``sgd.remask`` below it."""
+    with tracing.span("sgd.step", n=tracing.count("sgd.steps")):
+        with tracing.span("sgd.mask"):
+            mp = apply_masks(params, masks)
+        (loss, new_state), grads = value_and_grad(_loss_fn, mp, state, batch, cfg,
+                                                  sparse)
+        with tracing.span("sgd.update"):
+            _, opt_update = sgd(momentum=0.9, weight_decay=1e-4)
+            updates, opt_state = opt_update(grads, opt_state, params, lr)
+            params = apply_updates(params, updates)
+        with tracing.span("sgd.remask"):
+            params = apply_masks(params, masks)
+        return params, new_state, opt_state, loss
 
 
 def _train_step(params, state, opt_state, masks, batch, lr, cfg):

@@ -20,6 +20,7 @@ from typing import Any, Callable, Optional, Tuple
 import numpy as np
 import torch
 
+from .. import tracing
 from ..core.masks import (apply_masks, tree_flatten_with_path, tree_map,
                           tree_map_with_path)
 from . import compression as C
@@ -33,14 +34,18 @@ def value_and_grad(fn: Callable, params: PyTree, *args) -> Tuple[Any, PyTree]:
     respect to every floating-point leaf of ``params`` (a nested dict of
     tensors), like ``jax.value_and_grad(fn, has_aux=True)``. ``params`` is
     not modified; leaves the loss does not reach get zero gradients.
-    ``loss`` and ``aux`` come back detached."""
-    p = tree_map(lambda t: t.detach().requires_grad_(t.is_floating_point()),
-                 params)
-    loss, aux = fn(p, *args)
-    flat = [(path, t) for path, t in tree_flatten_with_path(p) if t.requires_grad]
-    grads = torch.autograd.grad(loss, [t for _, t in flat], allow_unused=True)
-    by_path = {path: (torch.zeros_like(t) if g is None else g)
-               for (path, t), g in zip(flat, grads)}
+    ``loss`` and ``aux`` come back detached. While a profiler records, the
+    two halves are the spans ``grad.forward`` and ``grad.backward`` of the
+    port's recorder."""
+    with tracing.span("grad.forward"):
+        p = tree_map(lambda t: t.detach().requires_grad_(t.is_floating_point()),
+                     params)
+        loss, aux = fn(p, *args)
+    with tracing.span("grad.backward"):
+        flat = [(path, t) for path, t in tree_flatten_with_path(p) if t.requires_grad]
+        grads = torch.autograd.grad(loss, [t for _, t in flat], allow_unused=True)
+        by_path = {path: (torch.zeros_like(t) if g is None else g)
+                   for (path, t), g in zip(flat, grads)}
     detach = lambda v: v.detach() if isinstance(v, torch.Tensor) else v
     return ((loss.detach(), tree_map(detach, aux)),
             tree_map_with_path(lambda path, t: by_path.get(path), p))
