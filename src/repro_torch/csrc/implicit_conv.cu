@@ -27,10 +27,41 @@
 // are at most bm*bk*bn int8 multiply-adds, most of them on lane padding (a
 // 3x3 group of 12 filters fills 12 of a tile's 128 lanes and 9 of its 16
 // rows), and the tensor cores do them at 1979 TOP/s; what is left is staging
-// the operands and writing the padded output array. What sets its time on
-// the layers the network runs is neither: it is each block's chain of
-// dependent phases (stage, decide the skips, convert weights, multiply,
-// flush) with a few blocks per SM, so the design removes links of it:
+// the operands and writing the padded output array (bm rows x 128 lanes of
+// codes an M-block). What sets its time on the served layers (2048-16384
+// M-blocks of one column) is neither: it is each block's chain of dependent
+// phases. Timed by clock64 stamps in the one-block-per-(M-block, N-tile)
+// body at batch 2048, a block spent 30-38 % of its time in its prologue
+// (tables, epilogue rows, window) and in copying and transposing its
+// column's weight units from L2, 34-60 % in the products and 6-16 % in the
+// flush, whose 2-byte stores write 8 bytes of each 32-byte sector. So a
+// launch takes one of two bodies, chosen from its geometry (`resident_path`,
+// mirrored on the host by `takes_resident_path` in kernels/implicit_conv.py;
+// the launcher refuses a launch whose choice differs):
+//   * resident (kResident): as many blocks as the card holds at once, each
+//     holding every live weight unit of its column, copied and transposed
+//     once into its own packed buffer (17 KB a unit: 35 KB on stage 1, 139
+//     KB on the 64-channel convs), then walking M-blocks c, c + G, ... Each
+//     M-block's window (all channels, pixels padded to an odd number of
+//     16-byte groups) is requested one M-block ahead into a ring of two; its
+//     activation skips are decided from it as below; a whole 128-row unit
+//     runs its four K steps as straight-line code; its codes go through
+//     staging rows in shared memory (the zero-accumulator codes written
+//     once, only the live n8 tiles rewritten per M-block) and leave in
+//     16-byte stores of whole rows. The two warps of an m16 tile (bm = 64)
+//     take alternate n8 tiles, so that a column's live tiles at the front
+//     split evenly. Taken where the column's units, the ring and the staging
+//     fit a block and each block walks at least two M-blocks: every conv of
+//     the served net at batch 2048. What is left of its time is the products
+//     (85-95 % of an M-block by the same stamps): the A-fragment gathers, a
+//     byte load per code, bound by latency at 8-16 warps an SM, not by the
+//     banks (a window laid out so that every load takes one wavefront ran
+//     no faster).
+//   * per block: one block per (M-block, N-tile), the column's units
+//     streamed through a raw ring for that M-block alone, as below: batch-1
+//     and small-batch serving, pricing, windows or columns too large to hold.
+// The per-block body, whose products, skips and epilogue the resident one
+// shares:
 //   * products on the tensor cores: mma.sync m16n8k32 (s8 x s8 -> s32) per
 //     32-deep K-step, m16n8k16 for a 16-deep one (bk = 16, the unpacked 3x3
 //     layout; bk = 8 is padded to 16). int32 sums are exact in any order, so
@@ -154,7 +185,10 @@ struct ConvGeom {
   int full;               // window staged with all Cp channels once
   int vec;                // bytes per window copy (16, 8, 4 or 1)
   int wvec;               // weight rows copied 4 bytes (int8) / 16 bytes (float) at a time
-  int wpitch;             // float: bytes per window pixel in shared memory
+  int wpitch;             // float, int8 resident: bytes per window pixel in shared memory
+  int n_mb;               // M-blocks of the launch (B * bpi)
+  int resident;           // int8: the resident path (weights held, M-blocks walked)
+  int stage_out;          // int8 resident: int8 codes out, rows written 16 bytes a store
 };
 
 // ---------------------------------------------------------------------------
@@ -367,12 +401,61 @@ __device__ __forceinline__ int gather4(const int8_t* win, bool valid, int off, i
   return static_cast<int>(b0 | (b1 << 8) | (b2 << 16) | (b3 << 24));
 }
 
+// The int8 instance's flush of M-block i from the fragments. The n8 tiles
+// whose weights are zero in every unit (no bit in any_n8) hold the
+// zero-accumulator row in every row: where the output rows allow 16-byte
+// stores, the block writes them from s_z / s_z8 (16 codes or 4 floats a
+// store); every other tile goes through the fragments: rows gq and gq + 8,
+// columns 2*tq and 2*tq + 1 of each n8 tile (the warp's tiles nt0, nt0 +
+// STEP, ...).
+template <int NTW, int STEP>
+__device__ __forceinline__ void imma_flush_frags(const int (&acc)[NTW][4], const Epilogue& eps,
+                                                 void* out, int out_int8, const ConvGeom& g, int i,
+                                                 int j, unsigned any_n8, const float* s_z,
+                                                 const int8_t* s_z8, int mt, int nt0, int gq,
+                                                 int tq, int tid) {
+  const int n8_count = (g.bn + 7) / 8;
+  const unsigned dead = ~any_n8 & ((1u << n8_count) - 1u);
+  unsigned skip = 0;
+  if (out_int8 ? (g.bn % 16 == 0 && g.n_total % 16 == 0) : (g.bn % 4 == 0 && g.n_total % 4 == 0))
+    skip = out_int8 ? ((dead & (dead >> 1)) & 0x5555u) * 3u : dead;
+  if (skip != 0) {
+    const int per = out_int8 ? g.bn / 16 : g.bn / 4;  // 16-byte chunks per row
+    for (int e = tid; e < g.bm * per; e += kImmaThreads) {
+      const int r = e / per;
+      const int ch = e - r * per;
+      if (!((skip >> (out_int8 ? 2 * ch : ch / 2)) & 1u)) continue;
+      const size_t o = (static_cast<size_t>(i) * g.bm + r) * g.n_total + j * g.bn;
+      if (out_int8) {
+        *reinterpret_cast<int4*>(static_cast<int8_t*>(out) + o + 16 * ch) =
+            *reinterpret_cast<const int4*>(s_z8 + 16 * ch);
+      } else {
+        *reinterpret_cast<float4*>(static_cast<float*>(out) + o + 4 * ch) =
+            *reinterpret_cast<const float4*>(s_z + 4 * ch);
+      }
+    }
+  }
+
+  const size_t row0 = (static_cast<size_t>(i) * g.bm + mt * 16 + gq) * g.n_total + j * g.bn;
+  const int rows_left = g.bm - (mt * 16 + gq);  // rows gq (+8) exist while > 0 (> 8)
+  if (out_int8) {
+    flush_frags<kOutI8, NTW, STEP>(acc, eps, out, row0, g.n_total, rows_left, nt0 * 8 + 2 * tq,
+                                   g.bn, skip >> nt0);
+  } else {
+    flush_frags<kOutF32, NTW, STEP>(acc, eps, out, row0, g.n_total, rows_left, nt0 * 8 + 2 * tq,
+                                    g.bn, skip >> nt0);
+  }
+}
+
+// The per-block body: one block per (M-block i, N-tile j), the column's
+// weight units streamed through the raw ring for this M-block alone.
 template <int MT>
-__global__ void __launch_bounds__(kImmaThreads, 2)
-implicit_conv_kernel_imma(const int8_t* __restrict__ xp, const int8_t* __restrict__ w,
-                          const int* __restrict__ idx, const int* __restrict__ cnt, Epilogue ep,
-                          void* __restrict__ out, int out_int8, int* __restrict__ skips,
-                          ConvGeom g) {
+__device__ __forceinline__ void imma_per_block(const int8_t* __restrict__ xp,
+                                               const int8_t* __restrict__ w,
+                                               const int* __restrict__ idx,
+                                               const int* __restrict__ cnt, const Epilogue& ep,
+                                               void* __restrict__ out, int out_int8,
+                                               int* __restrict__ skips, const ConvGeom& g) {
   constexpr int WN = kImmaWarps / MT;  // warps along N per m16 tile
   constexpr int NTW = 16 / WN;  // n8 tiles per warp
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -640,42 +723,399 @@ implicit_conv_kernel_imma(const int8_t* __restrict__ xp, const int8_t* __restric
     __syncthreads();
   }
   if (skips != nullptr && tid == 0) skips[i * n_cols + j] = skipped;
+  imma_flush_frags<NTW, 1>(acc, eps, out, out_int8, g, i, j, any_n8, s_z, s_z8, mt, nt0, gq, tq,
+                           tid);
+}
 
-  // flush. The n8 tiles whose weights are zero in every unit hold the
-  // zero-accumulator row in every row: where the output rows allow 16-byte
-  // stores, the block writes them from s_z / s_z8 (16 codes or 4 floats a
-  // store); every other tile goes through the fragments: rows gq and
-  // gq + 8, columns 2*tq and 2*tq + 1 of each n8 tile.
-  const int n8_count = (g.bn + 7) / 8;
-  const unsigned dead = ~any_n8 & ((1u << n8_count) - 1u);
-  unsigned skip = 0;
-  if (out_int8 ? (g.bn % 16 == 0 && g.n_total % 16 == 0) : (g.bn % 4 == 0 && g.n_total % 4 == 0))
-    skip = out_int8 ? ((dead & (dead >> 1)) & 0x5555u) * 3u : dead;
-  if (skip != 0) {
-    const int per = out_int8 ? g.bn / 16 : g.bn / 4;  // 16-byte chunks per row
-    for (int e = tid; e < g.bm * per; e += kImmaThreads) {
-      const int r = e / per;
-      const int ch = e - r * per;
-      if (!((skip >> (out_int8 ? 2 * ch : ch / 2)) & 1u)) continue;
-      const size_t o = (static_cast<size_t>(i) * g.bm + r) * g.n_total + j * g.bn;
-      if (out_int8) {
-        *reinterpret_cast<int4*>(static_cast<int8_t*>(out) + o + 16 * ch) =
-            *reinterpret_cast<const int4*>(s_z8 + 16 * ch);
-      } else {
-        *reinterpret_cast<float4*>(static_cast<float*>(out) + o + 4 * ch) =
-            *reinterpret_cast<const float4*>(s_z + 4 * ch);
-      }
+// ---------------------------------------------------------------------------
+// int8 codes, resident path: weight-stationary blocks that walk M-blocks
+// ---------------------------------------------------------------------------
+
+constexpr int kWinRing = 2;             // M-block windows: the one in use, the next in flight
+constexpr int kSmBytes = 233472;        // shared memory of one SM; a block reserves 1 KB more
+constexpr int kResidentMinWalk = 2;     // M-blocks a resident block walks at least
+// bytes per staged row of output codes: 16 beside the 128 lanes, so that
+// the fragments' 2-byte stores of rows gq = 0..7 fall in distinct banks
+constexpr int kStagePitch = kMaxBn + 16;
+
+// m16 tiles a block of the int8 instance holds for bm rows (its MT)
+__host__ __device__ inline int imma_mt(int bm) {
+  return bm <= 16 ? 1 : (bm <= 32 ? 2 : (bm <= 64 ? 4 : 8));
+}
+
+// Byte offsets of the resident kernel's dynamic shared memory: a packed
+// buffer for each weight unit of the column (max_nnz tiles), the K index ->
+// window offset table, the 16-row liveness flags, the column's live tiles,
+// each live step's nonzero flag for the M-block at hand, the units' n8
+// masks, the staging rows of output codes (16 an m16 tile) and the ring of
+// M-block windows (all Cp channels).
+struct ResSmem {
+  int units;
+  size_t woff, live16, lst, nz, n8, stg, win, wstride, total;
+};
+
+__host__ __device__ inline ResSmem resident_smem(const ConvGeom& g) {
+  const size_t bk16 = (g.bk + 15) / 16 * 16;
+  const UnitShape us = unit_shape(g, 1);
+  ResSmem s;
+  s.units = us.upt > 1 ? g.max_nnz * us.upt : (g.max_nnz + us.tpu - 1) / us.tpu;
+  size_t o = static_cast<size_t>(s.units) * kBufWords * 4;
+  s.woff = o;
+  o += align16(bk16 * 4);
+  s.live16 = o;
+  o += align16(bk16 / 16 * 4);
+  s.lst = o;
+  o += align16(static_cast<size_t>(g.max_nnz) * 4);
+  s.nz = o;
+  o += align16(static_cast<size_t>(g.max_nnz) * 4);
+  s.n8 = o;
+  o += align16(static_cast<size_t>(s.units) * 4);
+  s.stg = o;
+  o += static_cast<size_t>(imma_mt(g.bm)) * 16 * kStagePitch;
+  s.win = o;
+  s.wstride = align16(static_cast<size_t>(g.rows) * g.cols * g.wpitch);
+  o += kWinRing * s.wstride;
+  s.total = o;
+  return s;
+}
+
+// The path rule (mirrored by `takes_resident_path` in
+// kernels/implicit_conv.py, which chooses; the launcher refuses a launch
+// whose choice differs): resident where the column's units, the window ring
+// and the staging fit a block's shared memory, and each of the blocks that
+// the card holds at once (at most two an SM) walks at least two M-blocks.
+inline bool resident_path(const ConvGeom& g, int n_mb, int n_sm) {
+  const size_t need = resident_smem(g).total + kImmaStaticBytes;
+  if (need > static_cast<size_t>(kMaxSharedBytes)) return false;
+  const int fit = kSmBytes / static_cast<int>(need + 1024);
+  const int per_sm = fit < 2 ? fit : 2;
+  return n_mb >= kResidentMinWalk * n_sm * per_sm;
+}
+
+// Transpose a weight unit that landed raw at the start of its own packed
+// buffer (load_unit's layout: a thread's 4x4 blocks at 16 bytes each) into
+// that buffer: every thread reads its blocks among the first `rows` rows,
+// then, after a barrier, writes them transposed; OR into *n8_mask the n8
+// tiles that hold a nonzero code. Called by every thread of the block.
+__device__ __forceinline__ void convert_in_place(int* buf, unsigned* n8_mask, int rows, int tid) {
+  int4 v[kWBlocks];
+#pragma unroll
+  for (int q = 0; q < kWBlocks; ++q) {
+    const int blk = tid + kImmaThreads * q;
+    v[q] = blk / (kMaxBn / 4) * 4 < rows ? reinterpret_cast<const int4*>(buf)[blk]
+                                         : make_int4(0, 0, 0, 0);
+  }
+  __syncthreads();
+#pragma unroll
+  for (int q = 0; q < kWBlocks; ++q) {
+    const int blk = tid + kImmaThreads * q;
+    const int kw = blk / (kMaxBn / 4);
+    if (kw * 4 >= rows) break;
+    const int n = (blk % (kMaxBn / 4)) * 4;
+    const int4 t = transpose4x4_s8(v[q]);
+    *reinterpret_cast<int4*>(buf + kw * kBPitch + n) = t;
+    const unsigned m = __reduce_or_sync(0xffffffffu, (t.x | t.y | t.z | t.w) ? 1u << (n / 8) : 0u);
+    if ((tid & 31) == 0 && m != 0) atomicOr(n8_mask, m);
+  }
+}
+
+// The resident body: block c of column j holds every live weight unit of
+// the column, converted once, and walks M-blocks c, c + G, c + 2G, ... (G =
+// gridDim.x). Each M-block's window (all channels) is requested one
+// M-block ahead into a ring of two; its skips are decided from it, its
+// products run against the resident units, and its int8 codes leave
+// through the staging rows of each m16 tile in 16-byte stores (f32
+// outputs, and rows that do not allow them, through the fragments). The
+// WN warps of an m16 tile take every WN-th n8 tile, so that the live tiles
+// at the front of a column (9 of 16 on a 64-channel conv) split evenly.
+template <int MT>
+__device__ __forceinline__ void imma_resident(const int8_t* __restrict__ xp,
+                                              const int8_t* __restrict__ w,
+                                              const int* __restrict__ idx,
+                                              const int* __restrict__ cnt, const Epilogue& ep,
+                                              void* __restrict__ out, int out_int8,
+                                              int* __restrict__ skips, const ConvGeom& g) {
+  constexpr int WN = kImmaWarps / MT;  // warps along N per m16 tile
+  constexpr int NTW = 16 / WN;         // n8 tiles per warp
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __shared__ float s_rows[3][kMaxBn];            // this column's scale, bias, out_scale
+  __shared__ __align__(16) float s_z[kMaxBn];    // epilogue of a zero accumulator
+  __shared__ __align__(16) int8_t s_z8[kMaxBn];  // the same as int8 codes
+  const ResSmem L = resident_smem(g);
+  const UnitShape us = unit_shape(g, 1);
+  int* bufs = reinterpret_cast<int*>(smem_raw);
+  int* woff = reinterpret_cast<int*>(smem_raw + L.woff);
+  int* live16 = reinterpret_cast<int*>(smem_raw + L.live16);
+  int* lst = reinterpret_cast<int*>(smem_raw + L.lst);
+  int* nz = reinterpret_cast<int*>(smem_raw + L.nz);
+  unsigned* n8s = reinterpret_cast<unsigned*>(smem_raw + L.n8);
+  int8_t* wins = reinterpret_cast<int8_t*>(smem_raw + L.win);
+
+  const int n_cols = g.n_total / g.bn;
+  const int j = blockIdx.y;
+  const int G = gridDim.x;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int gq = lane >> 2;  // mma groupID
+  const int tq = lane & 3;   // mma thread in group
+  const int n_pix = g.block_oh * g.block_ow;
+  const int kxky = g.kx * g.ky;
+  const int bk16 = (g.bk + 15) / 16 * 16;
+  const int live = cnt[j];
+  const int* idx_j = idx + static_cast<size_t>(j) * g.max_nnz;
+  const int n_units = us.upt > 1 ? live * us.upt : (live + us.tpu - 1) / us.tpu;
+
+  // one cp.async group: the window of M-block i into ring slot s (empty past
+  // the last M-block, and for a column with no live tile)
+  auto request = [&](int i, int s) {
+    if (i < g.n_mb && live > 0) {
+      const int p = i % g.bpi;
+      load_window<1>(wins + s * L.wstride, xp, g, i / g.bpi, (p / g.spi) * g.block_oh * g.stride,
+                     (p % g.spi) * g.block_ow * g.stride, 0, g.Cp, g.wpitch, tid);
+    }
+    cp_async_commit();
+  };
+
+  // once a block: every weight unit of the column (one group, each unit raw
+  // in its own packed buffer), then the first window; beside them the tile
+  // list, the epilogue rows and the K table
+  for (int u = 0; u < n_units; ++u)
+    load_unit(reinterpret_cast<int8_t*>(bufs + u * kBufWords), w, g, j, idx_j,
+              unit_at(u, us, bk16, live), tid);
+  cp_async_commit();
+  request(blockIdx.x, 0);
+  for (int s = tid; s < live; s += kImmaThreads) lst[s] = idx_j[s];
+  for (int c = tid; c < g.bn; c += kImmaThreads) {
+    const int n = j * g.bn + c;
+    s_rows[0][c] = ep.scale != nullptr ? ep.scale[n] : 0.0f;
+    s_rows[1][c] = ep.bias != nullptr ? ep.bias[n] : 0.0f;
+    s_rows[2][c] = ep.out_scale != nullptr ? ep.out_scale[n] : 0.0f;
+  }
+  for (int k0 = 0; k0 < bk16; k0 += kImmaThreads) {
+    const int k = k0 + tid;
+    int wo = -1;
+    if (k < bk16) {
+      const int ch = k / g.slot;
+      const int tap = k - ch * g.slot;
+      if (k < g.bk && tap < kxky && ch < g.cpk)
+        wo = ((tap / g.ky) * g.cols + (tap % g.ky)) * g.wpitch + ch;
+      woff[k] = wo;
+    }
+    const unsigned m = __ballot_sync(0xffffffffu, wo >= 0);
+    if (lane == 0 && k < bk16) {
+      live16[k / 16] = (m & 0xffffu) != 0;
+      if (k + 16 < bk16) live16[k / 16 + 1] = (m >> 16) != 0;
     }
   }
+  for (int u = tid; u < n_units; u += kImmaThreads) n8s[u] = 0;
+  cp_async_wait<1>();  // the weights (the first window may be in flight)
+  __syncthreads();
+  for (int u = 0; u < n_units; ++u) {
+    const Unit x = unit_at(u, us, bk16, live);
+    convert_in_place(bufs + u * kBufWords, &n8s[u], x.ns * x.rt, tid);
+  }
+  const Epilogue eps{ep.scale != nullptr ? s_rows[0] : nullptr,
+                     ep.bias != nullptr ? s_rows[1] : nullptr,
+                     ep.out_scale != nullptr ? s_rows[2] : nullptr, ep.relu};
+  for (int c = tid; c < g.bn; c += kImmaThreads) {
+    const float z = flush_epilogue<int>(0, eps, c);
+    s_z[c] = z;
+    s_z8[c] = ep.out_scale != nullptr ? static_cast<int8_t>(z) : 0;
+  }
+  __syncthreads();
 
-  const size_t row0 = (static_cast<size_t>(i) * g.bm + mt * 16 + gq) * g.n_total + j * g.bn;
-  const int rows_left = g.bm - (mt * 16 + gq);  // rows gq (+8) exist while > 0 (> 8)
-  if (out_int8) {
-    flush_frags<kOutI8, NTW, 1>(acc, eps, out, row0, g.n_total, rows_left, nt0 * 8 + 2 * tq,
-                                g.bn, skip >> nt0);
+  // n8 tiles whose weights hold a nonzero code in some unit: the tiles up
+  // to the last such one are the only ones the fragments flush
+  unsigned any_n8 = 0;
+  for (int u = 0; u < n_units; ++u) any_n8 |= n8s[u];
+  const int n_hi = 32 - __clz(any_n8);
+  const int mt = warp / WN;
+  const int nt0 = warp % WN;  // this warp's n8 tiles: nt0, nt0 + WN, ...
+  int8_t* stg = reinterpret_cast<int8_t*>(smem_raw + L.stg) + mt * 16 * kStagePitch;
+  // the staging rows hold the zero-accumulator codes in every lane no
+  // fragment writes: the same for every M-block (the loop's first barrier
+  // orders these stores before any read)
+  if (g.stage_out)
+    for (int e = tid; e < MT * 16 * (kMaxBn / 4); e += kImmaThreads) {
+      const int r = e / (kMaxBn / 4);
+      const int c4 = (e - r * (kMaxBn / 4)) * 4;
+      *reinterpret_cast<int*>(smem_raw + L.stg + r * kStagePitch + c4) =
+          *reinterpret_cast<const int*>(s_z8 + c4);
+    }
+
+  // output rows of this thread's two fragment rows, and their window offsets
+  bool valid[2];
+  int off[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int m = mt * 16 + gq + 8 * h;
+    valid[h] = m < n_pix;
+    const int oh = m / g.block_ow;
+    const int ow = m % g.block_ow;
+    off[h] = valid[h] ? ((oh * g.stride) * g.cols + ow * g.stride) * g.wpitch : 0;
+  }
+  const int4 h_wa = *reinterpret_cast<const int4*>(woff + 4 * tq);
+  const int4 h_wb = bk16 >= 32 ? *reinterpret_cast<const int4*>(woff + 16 + 4 * tq)
+                               : make_int4(-1, -1, -1, -1);
+  const bool h_live = bk16 == 16 ? live16[0] != 0 : (bk16 == 32 && (live16[0] | live16[1]));
+
+  int acc[NTW][4];
+  // one 32- or 16-deep K step of this warp's m16 tile against its n8 tiles
+  // below hi
+  auto step32 = [&](const int* buf, int kw, int hi, const int8_t* wn, int4 wa, int4 wb) {
+    const int a0 = gather4(wn, valid[0], off[0], wa);
+    const int a1 = gather4(wn, valid[1], off[1], wa);
+    const int a2 = gather4(wn, valid[0], off[0], wb);
+    const int a3 = gather4(wn, valid[1], off[1], wb);
+#pragma unroll
+    for (int n = 0; n < NTW; ++n) {
+      const int nt = nt0 + n * WN;
+      if (nt >= hi) break;
+      mma_k32(acc[n], a0, a1, a2, a3, buf[kw * kBPitch + nt * 8 + gq],
+              buf[(kw + 4) * kBPitch + nt * 8 + gq]);
+    }
+  };
+  auto step16 = [&](const int* buf, int kw, int hi, const int8_t* wn, int4 wa) {
+    const int a0 = gather4(wn, valid[0], off[0], wa);
+    const int a1 = gather4(wn, valid[1], off[1], wa);
+#pragma unroll
+    for (int n = 0; n < NTW; ++n) {
+      const int nt = nt0 + n * WN;
+      if (nt >= hi) break;
+      mma_k16(acc[n], a0, a1, buf[kw * kBPitch + nt * 8 + gq]);
+    }
+  };
+
+  int t = 0;  // this block's M-blocks so far
+  for (int i = blockIdx.x; i < g.n_mb; i += G, ++t) {
+    // window i has landed; after the barrier every warp has left M-block
+    // i - G, whose ring slot takes window i + G
+    cp_async_wait<0>();
+    __syncthreads();
+    request(i + G, (t + 1) % kWinRing);
+    const int8_t* win = wins + (t % kWinRing) * L.wstride;
+    if (g.dsb && live > 0) {
+      // skip flag of every live step from the window (the whole window of
+      // its K-tile's cpk channels), one warp per step
+      const int slice = g.rows * g.cols * g.cpk;
+      for (int s = warp; s < live; s += kImmaWarps) {
+        const int cb = lst[s] * g.cpk;
+        int hit = 0;
+        for (int e0 = 0; e0 < slice; e0 += 32) {
+          const int e = e0 + lane;
+          if (e < slice) {
+            const int px = e / g.cpk;
+            hit |= win[px * g.wpitch + cb + (e - px * g.cpk)] != 0;
+          }
+          if (__any_sync(0xffffffffu, hit)) {
+            hit = 1;
+            break;
+          }
+        }
+        if (lane == 0) nz[s] = hit;
+      }
+      __syncthreads();
+    }
+
+#pragma unroll
+    for (int n = 0; n < NTW; ++n)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) acc[n][c] = 0;
+    for (int u = 0; u < n_units; ++u) {
+      // products only up to the last n8 tile whose weights in the unit hold
+      // a nonzero code (lane padding multiplies zeros)
+      const int hi = 32 - __clz(n8s[u]);
+      if (nt0 >= hi) continue;
+      const Unit x = unit_at(u, us, bk16, live);
+      const int* buf = bufs + u * kBufWords;
+      for (int q = 0; q < x.ns; ++q) {
+        if (g.dsb && nz[x.s0 + q] == 0) continue;
+        const int8_t* wn = win + lst[x.s0 + q] * g.cpk;
+        const int kq = q * x.rt;  // the K-tile's first row in the unit
+        if (bk16 == 16) {
+          if (h_live) step16(buf, kq / 4 + tq, hi, wn, h_wa);
+        } else if (bk16 == 32) {
+          if (h_live) step32(buf, kq / 4 + tq, hi, wn, h_wa, h_wb);
+        } else if (x.rt == kUnitK) {
+          // a whole 128-row unit: four K steps in straight-line code, so
+          // that the loads of one step overlap the products of another (a
+          // 16-row group that lies in patch padding gathers zeros)
+#pragma unroll
+          for (int d = 0; d < kUnitK; d += 32)
+            step32(buf, (kq + d) / 4 + tq, hi, wn,
+                   *reinterpret_cast<const int4*>(woff + x.lo + d + 4 * tq),
+                   *reinterpret_cast<const int4*>(woff + x.lo + d + 16 + 4 * tq));
+        } else {
+          for (int k = x.lo; k < x.lo + x.rt;) {
+            const int kw = (kq + k - x.lo) / 4 + tq;
+            if (x.lo + x.rt - k >= 32) {
+              if (live16[k / 16] | live16[k / 16 + 1])
+                step32(buf, kw, hi, wn, *reinterpret_cast<const int4*>(woff + k + 4 * tq),
+                       *reinterpret_cast<const int4*>(woff + k + 16 + 4 * tq));
+              k += 32;
+            } else {
+              if (live16[k / 16])
+                step16(buf, kw, hi, wn, *reinterpret_cast<const int4*>(woff + k + 4 * tq));
+              k += 16;
+            }
+          }
+        }
+      }
+    }
+    if (skips != nullptr && tid == 0) {
+      int skipped = 0;
+      if (g.dsb)
+        for (int s = 0; s < live; ++s) skipped += nz[s] == 0;
+      skips[i * n_cols + j] = skipped;
+    }
+
+    if (!g.stage_out) {
+      imma_flush_frags<NTW, WN>(acc, eps, out, out_int8, g, i, j, any_n8, s_z, s_z8, mt, nt0, gq,
+                                tq, tid);
+      continue;
+    }
+    // flush: this warp's fragments (columns 2*tq, 2*tq + 1 of its tiles
+    // below n_hi, rows gq and gq + 8) into its m16 tile's staging rows as
+    // codes; once the tile's WN warps are there (a named barrier, one per
+    // m16 tile), its 16 rows go out in 16-byte stores
+#pragma unroll
+    for (int n = 0; n < NTW; ++n) {
+      const int c = (nt0 + n * WN) * 8 + 2 * tq;
+      if (c >= n_hi * 8) break;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int v0 = static_cast<int8_t>(flush_epilogue<int>(acc[n][2 * h], eps, c));
+        const int v1 = static_cast<int8_t>(flush_epilogue<int>(acc[n][2 * h + 1], eps, c + 1));
+        *reinterpret_cast<unsigned short*>(stg + (gq + 8 * h) * kStagePitch + c) =
+            static_cast<unsigned short>((v0 & 0xff) | ((v1 & 0xff) << 8));
+      }
+    }
+    asm volatile("bar.sync %0, %1;\n" ::"r"(1 + mt), "r"(WN * 32) : "memory");
+    constexpr int CPR = kMaxBn / 16;  // 16-byte chunks of a staged row
+    int8_t* out8 = static_cast<int8_t*>(out);
+    for (int e = nt0 * 32 + lane; e < 16 * CPR; e += WN * 32) {
+      const int r = e / CPR;
+      const int col = 16 * (e - r * CPR);
+      const int m = mt * 16 + r;
+      if (m < g.bm && col < g.bn)
+        *reinterpret_cast<int4*>(out8 + (static_cast<size_t>(i) * g.bm + m) * g.n_total +
+                                 j * g.bn + col) =
+            *reinterpret_cast<const int4*>(stg + r * kStagePitch + col);
+    }
+  }
+}
+
+template <int MT, bool kResident>
+__global__ void __launch_bounds__(kImmaThreads, 2)
+implicit_conv_kernel_imma(const int8_t* __restrict__ xp, const int8_t* __restrict__ w,
+                          const int* __restrict__ idx, const int* __restrict__ cnt, Epilogue ep,
+                          void* __restrict__ out, int out_int8, int* __restrict__ skips,
+                          ConvGeom g) {
+  if constexpr (kResident) {
+    imma_resident<MT>(xp, w, idx, cnt, ep, out, out_int8, skips, g);
   } else {
-    flush_frags<kOutF32, NTW, 1>(acc, eps, out, row0, g.n_total, rows_left, nt0 * 8 + 2 * tq,
-                                 g.bn, skip >> nt0);
+    imma_per_block<MT>(xp, w, idx, cnt, ep, out, out_int8, skips, g);
   }
 }
 
@@ -1091,9 +1531,10 @@ implicit_conv_kernel(const T* __restrict__ xp, const T* __restrict__ w,
 // ---------------------------------------------------------------------------
 
 template <typename Kernel>
-static cudaError_t allow_shared(Kernel kernel, size_t smem) {
-  // above 48 KB a launch is refused unless the carve-out was asked for
-  if (smem <= 48 * 1024) return cudaSuccess;
+static cudaError_t allow_shared(Kernel kernel, size_t smem, size_t static_smem) {
+  // above 48 KB with the static shared memory a launch is refused unless
+  // the carve-out was asked for
+  if (smem + static_smem <= 48 * 1024) return cudaSuccess;
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                               static_cast<int>(smem));
 }
@@ -1101,10 +1542,26 @@ static cudaError_t allow_shared(Kernel kernel, size_t smem) {
 template <int MT>
 static cudaError_t launch_imma_mt(const void* xp, const void* w, const int* idx, const int* cnt,
                                   const Epilogue& ep, void* out, int out_int8, int* skips,
-                                  int n_blocks, const ConvGeom& g, cudaStream_t stream) {
-  auto kernel = implicit_conv_kernel_imma<MT>;
+                                  int n_blocks, int n_sm, const ConvGeom& g, cudaStream_t stream) {
+  if (g.resident) {
+    // as many blocks as the card holds at once, each walking M-blocks
+    auto kernel = implicit_conv_kernel_imma<MT, true>;
+    const size_t smem = resident_smem(g).total;
+    cudaError_t err = allow_shared(kernel, smem, kImmaStaticBytes);
+    if (err != cudaSuccess) return err;
+    int per_sm = 0;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kImmaThreads, smem);
+    if (err != cudaSuccess) return err;
+    const int walkers = n_sm * (per_sm > 0 ? per_sm : 1);
+    const dim3 grid(n_blocks < walkers ? n_blocks : walkers, g.n_total / g.bn);
+    kernel<<<grid, dim3(kImmaThreads), smem, stream>>>(static_cast<const int8_t*>(xp),
+                                                   static_cast<const int8_t*>(w), idx, cnt, ep,
+                                                   out, out_int8, skips, g);
+    return cudaGetLastError();
+  }
+  auto kernel = implicit_conv_kernel_imma<MT, false>;
   const size_t smem = imma_smem(g, g.full).total;
-  cudaError_t err = allow_shared(kernel, smem);
+  cudaError_t err = allow_shared(kernel, smem, kImmaStaticBytes);
   if (err != cudaSuccess) return err;
   const dim3 grid(n_blocks, g.n_total / g.bn);
   kernel<<<grid, dim3(kImmaThreads), smem, stream>>>(static_cast<const int8_t*>(xp),
@@ -1122,21 +1579,43 @@ static int largest_copy(uintptr_t ptr, int Cp, int wc) {
 
 static cudaError_t launch_imma(const void* xp, const void* w, const int* idx, const int* cnt,
                                const Epilogue& ep, void* out, int out_int8, int* skips,
-                               int n_blocks, ConvGeom g, cudaStream_t stream) {
+                               int n_blocks, int resident, ConvGeom g, cudaStream_t stream) {
+  // the caller's choice of path must be the rule's on this card; the
+  // resident window's pixels are padded to an odd number of 16-byte groups
+  // (with 32 or 64 channels packed the byte loads of an A fragment meet in
+  // two banks)
+  g.wpitch = window_pitch(g.Cp, 1);
+  int dev = 0, n_sm = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return err;
+  if ((resident != 0) != resident_path(g, n_blocks, n_sm)) return cudaErrorInvalidValue;
+  g.resident = resident != 0;
   // all channels of the window at once where they fit, else one K-tile's
-  // (the kernel's static shared memory holds the epilogue rows)
+  // (the kernel's static shared memory holds the epilogue rows); the
+  // resident path always holds all of them
   const size_t budget = kMaxSharedBytes - kImmaStaticBytes;
-  g.full = imma_smem(g, 1).total <= budget ? 1 : 0;
-  if (imma_smem(g, g.full).total > budget) return cudaErrorInvalidValue;
+  g.full = g.resident || imma_smem(g, 1).total <= budget ? 1 : 0;
+  if (!g.resident && imma_smem(g, g.full).total > budget) return cudaErrorInvalidValue;
   g.vec = largest_copy(reinterpret_cast<uintptr_t>(xp), g.Cp, g.full ? g.Cp : g.cpk);
   g.wvec = (reinterpret_cast<uintptr_t>(w) % 4 == 0 && g.n_total % 4 == 0 && g.bn % 4 == 0);
-  if (g.bm <= 16)
-    return launch_imma_mt<1>(xp, w, idx, cnt, ep, out, out_int8, skips, n_blocks, g, stream);
-  if (g.bm <= 32)
-    return launch_imma_mt<2>(xp, w, idx, cnt, ep, out, out_int8, skips, n_blocks, g, stream);
-  if (g.bm <= 64)
-    return launch_imma_mt<4>(xp, w, idx, cnt, ep, out, out_int8, skips, n_blocks, g, stream);
-  return launch_imma_mt<8>(xp, w, idx, cnt, ep, out, out_int8, skips, n_blocks, g, stream);
+  g.stage_out = out_int8 && g.bn % 16 == 0 && g.n_total % 16 == 0 &&
+                reinterpret_cast<uintptr_t>(out) % 16 == 0;
+  switch (imma_mt(g.bm)) {
+    case 1:
+      return launch_imma_mt<1>(xp, w, idx, cnt, ep, out, out_int8, skips, n_blocks, n_sm, g,
+                               stream);
+    case 2:
+      return launch_imma_mt<2>(xp, w, idx, cnt, ep, out, out_int8, skips, n_blocks, n_sm, g,
+                               stream);
+    case 4:
+      return launch_imma_mt<4>(xp, w, idx, cnt, ep, out, out_int8, skips, n_blocks, n_sm, g,
+                               stream);
+    default:
+      return launch_imma_mt<8>(xp, w, idx, cnt, ep, out, out_int8, skips, n_blocks, n_sm, g,
+                               stream);
+  }
 }
 
 template <typename T, int MT>
@@ -1145,7 +1624,7 @@ static cudaError_t launch_mma_mt(const void* xp, const void* w, const int* idx, 
                                  const ConvGeom& g, cudaStream_t stream) {
   auto kernel = implicit_conv_kernel<T, MT>;
   const size_t smem = mma_smem<T>(g, g.full).total;
-  cudaError_t err = allow_shared(kernel, smem);
+  cudaError_t err = allow_shared(kernel, smem, kMmaStaticBytes<T>);
   if (err != cudaSuccess) return err;
   const dim3 grid(n_blocks, g.n_total / g.bn);
   kernel<<<grid, dim3(kImmaThreads), smem, stream>>>(static_cast<const T*>(xp),
@@ -1184,14 +1663,16 @@ static cudaError_t launch_mma(const void* xp, const void* w, const int* idx, con
 // `dtype`; idx (n_total/bn, max_nnz), cnt (n_total/bn) int32; scale / bias /
 // out_scale f32 rows of length n_total or null; out (B*bpi*bm, n_total) in
 // the operand's float type (f32 for int8 codes) or int8 codes when out_scale
-// is given; skips (B*bpi, n_total/bn) int32 or null. Returns the launch's
-// cudaError_t (0 = launched).
+// is given; skips (B*bpi, n_total/bn) int32 or null; resident (int8 codes)
+// the path `resident_path` gives this launch on the current card, the
+// resident one where nonzero. Returns the launch's cudaError_t (0 =
+// launched; a resident flag the rule does not give is refused).
 extern "C" int hapm_implicit_block_sparse_conv(
     const void* xp, const void* w, const int* idx, const int* cnt, const float* scale,
     const float* bias, const float* out_scale, void* out, int* skips, int B, int Hp, int Wp, int Cp,
     int n_total, int max_nnz, int kx, int ky, int stride, int block_oh, int block_ow, int spi,
     int bpi, int bm, int bk, int bn, int cpk, int slot, int dtype, int relu, int dsb,
-    void* stream) {
+    int resident, void* stream) {
   using namespace hapm;
   ConvGeom g;
   g.Hp = Hp; g.Wp = Wp; g.Cp = Cp;
@@ -1202,7 +1683,7 @@ extern "C" int hapm_implicit_block_sparse_conv(
   g.rows = (block_oh - 1) * stride + kx;
   g.cols = (block_ow - 1) * stride + ky;
   g.dsb = dsb;
-  g.full = g.vec = g.wvec = g.wpitch = 0;
+  g.full = g.vec = g.wvec = g.wpitch = g.resident = g.stage_out = 0;
   if (bm < 1 || bm > kMaxBn || bn < 1 || bn > kMaxBn || n_total % bn || Cp % cpk || slot < 1 ||
       block_oh * block_ow > bm || (dsb && dtype != kI8))
     return static_cast<int>(cudaErrorInvalidValue);
@@ -1210,6 +1691,8 @@ extern "C" int hapm_implicit_block_sparse_conv(
   const int out_int8 = (dtype == kI8 && out_scale != nullptr) ? 1 : 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int n_blocks = B * bpi;
+  g.n_mb = n_blocks;
+  if (resident && dtype != kI8) return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err;
   switch (dtype) {
     case kF32:
@@ -1219,7 +1702,7 @@ extern "C" int hapm_implicit_block_sparse_conv(
       err = launch_mma<__nv_bfloat16>(xp, w, idx, cnt, ep, out, skips, n_blocks, g, st);
       break;
     case kI8:
-      err = launch_imma(xp, w, idx, cnt, ep, out, out_int8, skips, n_blocks, g, st);
+      err = launch_imma(xp, w, idx, cnt, ep, out, out_int8, skips, n_blocks, resident, g, st);
       break;
     default:
       err = cudaErrorInvalidValue;

@@ -41,13 +41,19 @@ Two implementations of the one function live here:
   int32 sums, deciding every step's activation skip from that copy before
   the product loop; f32 operands as 3×TF32 (each operand split into two
   TF32 halves, three products summed in f32: within 1e-4, where one TF32
-  product is not) and bf16 operands with exact products, both in f32.
+  product is not) and bf16 operands with exact products, both in f32. The
+  int8 instance has a second, resident body for large launches (every conv
+  of the served net at batch 2048): as many blocks as the card holds, each
+  converting its column's weights once and walking M-blocks; the launch's
+  geometry picks it (:func:`takes_resident_path`, which the C launcher
+  checks), and the recorder counts it (``RESIDENT``).
 - :func:`implicit_block_sparse_conv_plain` — the same function in plain
   PyTorch on the same packed operands and tables; the CPU path and the
   yardstick the kernel is held to on the card.
 """
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple, Optional, Tuple
 
 import torch
@@ -77,6 +83,17 @@ CARD_SHARED_BYTES = 232448
 _BESIDE_WINDOW_BYTES = 16 * 1024
 
 LAUNCHES = "kernel.implicit_block_sparse_conv.launches"
+RESIDENT = "kernel.implicit_block_sparse_conv.resident"
+
+# The int8 instance's resident path (csrc/implicit_conv.cu, `resident_smem`
+# and `resident_path`, which this module mirrors): what one SM's shared
+# memory holds, a block's reserve beside it, the static shared memory of the
+# int8 kernel, a packed 128-row weight unit, and the windows in flight.
+SM_SHARED_BYTES = 233472
+_BLOCK_RESERVE_BYTES = 1024
+_IMMA_STATIC_BYTES = 4 * KERNEL_MAX_BN * 4 + KERNEL_MAX_BN + 16
+_UNIT_BYTES = 32 * (KERNEL_MAX_BN + 8) * 4
+_WINDOW_RING = 2
 
 
 def launch_count() -> int:
@@ -86,7 +103,60 @@ def launch_count() -> int:
 
 
 def reset_launch_count() -> None:
-    tracing.reset(LAUNCHES)
+    tracing.reset(LAUNCHES, RESIDENT)
+
+
+def resident_launch_count() -> int:
+    """Launches of the int8 instance that took the resident path (the
+    recorder's ``kernel.implicit_block_sparse_conv.resident``)."""
+    return tracing.counter(RESIDENT)
+
+
+def window_pitch(cp: int) -> int:
+    """Bytes per window pixel of ``cp`` int8 channels in the resident path's
+    shared memory: padded to an odd number of 16-byte groups (with 32 or 64
+    channels packed, the byte loads of an A fragment meet in two banks)."""
+    return 16 * (-(-cp // 16) | 1) if cp >= 16 else cp
+
+
+def resident_smem_bytes(bm: int, bk: int, max_nnz: int, window_bytes: int) -> int:
+    """Shared memory a block of the int8 instance's resident path holds:
+    every weight unit of its column (``max_nnz`` live K-tiles, packed 128
+    rows a unit), the K table and the step lists, 16 staging rows of output
+    codes an m16 tile, two windows of ``window_bytes`` (window pixels times
+    :func:`window_pitch`), and the static epilogue rows."""
+    bk16 = _ceil_to(bk, 16)
+    upt = -(-bk16 // 128)                   # units per K-tile
+    tpu = 128 // bk16 if upt == 1 else 1    # K-tiles per unit
+    units = max_nnz * upt if upt > 1 else -(-max_nnz // tpu)
+    mt = 1 if bm <= 16 else 2 if bm <= 32 else 4 if bm <= 64 else 8
+    return (units * _UNIT_BYTES + _ceil_to(bk16 * 4, 16)
+            + _ceil_to(bk16 // 16 * 4, 16) + 2 * _ceil_to(max_nnz * 4, 16)
+            + _ceil_to(units * 4, 16) + mt * 16 * (KERNEL_MAX_BN + 16)
+            + _WINDOW_RING * _ceil_to(window_bytes, 16) + _IMMA_STATIC_BYTES)
+
+
+def takes_resident_path(n_blocks: int, bm: int, bk: int, max_nnz: int,
+                        window_bytes: int, n_sm: int) -> bool:
+    """Whether a launch of the int8 instance over ``n_blocks`` M-blocks
+    takes the resident path on a card of ``n_sm`` SMs: weight-stationary
+    blocks, as many as the card holds at once, each converting its column's
+    live weight units once and walking M-blocks. It does where the units,
+    the window ring and the staging fit a block's shared memory and each
+    such block (at most two an SM) walks at least two M-blocks; elsewhere
+    (batch-1 serving, windows or columns too large) every (M-block, column)
+    gets a block of its own. The launcher checks the choice against the
+    same rule and refuses a launch where they differ."""
+    need = resident_smem_bytes(bm, bk, max_nnz, window_bytes)
+    if need > CARD_SHARED_BYTES:
+        return False
+    per_sm = min(2, SM_SHARED_BYTES // (need + _BLOCK_RESERVE_BYTES))
+    return n_blocks >= 2 * n_sm * per_sm
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def _ceil_to(n: int, m: int) -> int:
@@ -359,6 +429,9 @@ def implicit_block_sparse_conv(
              if count_skips else None)
     if n_blocks == 0:
         return (out, skips) if count_skips else out
+    resident = xp.dtype == torch.int8 and takes_resident_path(
+        n_blocks, mb.bm, bk, idx.shape[1], rows * cols * window_pitch(Cp),
+        _sm_count(dev.index))
     lib = _build.load()
     ptr = lambda t: None if t is None else t.data_ptr()
     with torch.cuda.device(dev):
@@ -367,8 +440,10 @@ def implicit_block_sparse_conv(
             ptr(out_scale), ptr(out), ptr(skips), B, Hp, Wp, Cp, n_total,
             idx.shape[1], kx, ky, stride, mb.block_oh, mb.block_ow, mb.spi,
             mb.bpi, mb.bm, bk, bn, cpk, slot, DTYPE_CODES[xp.dtype],
-            int(relu), int(activation_dsb),
+            int(relu), int(activation_dsb), int(resident),
             torch.cuda.current_stream(dev).cuda_stream)
     _build.check_launch(err, "implicit_block_sparse_conv")
     tracing.count(LAUNCHES)
+    if resident:
+        tracing.count(RESIDENT)
     return (out, skips) if count_skips else out

@@ -22,8 +22,10 @@ products) the serving row shape at batch 32 and 1, M-blocks that are not a
 multiple of 16 rows, 16-, 32- and 128-row K-tiles, K-steps that span two
 channels, columns with no live tile, all-zero windows at stride 2, windows
 whose untapped pixels alone are nonzero, column segments, windows beyond 48
-KB and beyond what fits with all channels, two launches bit-identical and
-skip counters equal; for the weight-gradient kernel (tensor-core
+KB and beyond what fits with all channels, the served net's eight layer
+geometries at batch 2048 and a batch of 1031 on the resident path (the path
+the rule picks, counted), codes over the whole range on both paths, two
+launches bit-identical and skip counters equal; for the weight-gradient kernel (tensor-core
 products over stacks of one column's live tiles) every tile shape of the
 training path, one live tile and all of them in a shuffled order, row
 counts that are not a multiple of the 32-row step or of the row chunk,
@@ -489,6 +491,13 @@ IMMA_CASES = [  # (k, cin, cout, stride, h, w, batch, cap, n_cu, activation patt
     (3, 40, 8, 7, 77, 77, 1, 128, 4, "half"),           # all channels too large: per-step window
     (3, 16, 32, 2, 32, 32, 4, 128, 12, "zero_windows"),  # stride 2, whole windows zero
     (1, 16, 16, 2, 16, 16, 2, 128, 4, "odd_only"),      # stride 2: only untapped pixels nonzero
+    # the served net's eight layer geometries at batch 2048: the resident path
+    *[(k, cin, cout, stride, h, h, 2048, 128, 12, "half_batch")
+      for k, cin, cout, stride, h in CIFAR_GEOMS],
+    (3, 16, 16, 1, 32, 32, 1031, 128, 12, "half_batch"),  # M-blocks no multiple of the grid
+    (3, 16, 16, 1, 32, 32, 64, 64, 12, "half_batch"),     # bm 64: 47.8 KB + 2.1 KB static
+    (3, 64, 64, 1, 8, 8, 2048, 128, 12, "full_range"),    # codes -128 .. 127, resident
+    (3, 16, 16, 1, 32, 32, 32, 128, 12, "full_range"),    # the same on the per-block path
 ]
 
 
@@ -498,7 +507,9 @@ def _imma_operands(case, packed, mode, dev):
     half of the first half of the images (as the smoke run does), ``half``
     the top half of image 0, ``zero_windows`` image 0 and the first M-block
     window of image 1, ``odd_only`` every even row and column (at stride 2
-    the tapped pixels of a 1x1 conv are zero, its windows are not)."""
+    the tapped pixels of a 1x1 conv are zero, its windows are not);
+    ``full_range`` draws every weight code of the packed tiles and every
+    activation code from -128 .. 127."""
     k, cin, cout, stride, h, w_, batch, cap, n_cu, pattern = case
     rs = np.random.RandomState(sum(case[:9]))
     layout = TP.conv_gemm_layout(TG.fpga_conv_groups((k, k, cin, cout), n_cu), packed=packed)
@@ -514,13 +525,16 @@ def _imma_operands(case, packed, mode, dev):
     elif pattern == "zero_windows":
         x[0] = 0.0
         x[1, : h // 2 + 1] = 0.0
-    else:
+    elif pattern == "odd_only":
         x[:, ::2] = 0.0
         x[:, :, ::2] = 0.0
     x = torch.from_numpy(x).to(dev)
     q = TQ.QuantSpec.calibrate(w)
     wp = layout.pack_weight(q.weight_codes(layout.spec.expand(gm).to(dev) * w)).contiguous()
     xin = q.act_codes(x)
+    if pattern == "full_range":
+        codes = lambda shape: torch.from_numpy(rs.randint(-128, 128, shape).astype(np.int8))
+        wp, xin = codes(tuple(wp.shape)).to(dev), codes(tuple(xin.shape)).to(dev)
     scale = layout.pack_bias(q.dequant_row(cout, dev))
     bias = layout.pack_bias(torch.from_numpy(rs.randn(cout).astype(np.float32)).to(dev))
     out_scale = (layout.pack_bias(torch.full((cout,), 16.0, device=dev))
@@ -545,13 +559,26 @@ def _imma_operands(case, packed, mode, dev):
 def test_implicit_conv_int8_tensor_core_instance(dev, case, packed, mode):
     """The int8 instance (tensor-core products) bit-equal to the plain
     version, outputs and skip counters, two launches bit-identical, one
-    launch counted per call."""
+    launch counted per call; launches of 1024 M-blocks or more take the
+    resident path and those of 256 or fewer the per-block path, as the rule
+    says."""
     args, kw = _imma_operands(case, packed, mode, dev)
-    before = IC.launch_count()
+    xp, mb = args[0], kw["mb"]
+    rows, cols = IC.window_shape(mb, kw["kx"], kw["ky"], kw["stride"])
+    resident = IC.takes_resident_path(
+        xp.shape[0] * mb.bpi, mb.bm, kw["block"][0], args[2].shape[1],
+        rows * cols * IC.window_pitch(xp.shape[3]),
+        torch.cuda.get_device_properties(dev).multi_processor_count)
+    if xp.shape[0] * mb.bpi >= 1024:
+        assert resident
+    elif xp.shape[0] * mb.bpi <= 256:
+        assert not resident
+    before, before_res = IC.launch_count(), IC.resident_launch_count()
     got = IC.implicit_block_sparse_conv(*args, **kw)
     again = IC.implicit_block_sparse_conv(*args, **kw)
     torch.cuda.synchronize()
     assert IC.launch_count() == before + 2
+    assert IC.resident_launch_count() == before_res + 2 * resident
     want = IC.implicit_block_sparse_conv_plain(*args, **kw)
     if kw["count_skips"]:
         assert torch.equal(got[1], want[1]) and torch.equal(again[1], got[1])

@@ -1,0 +1,125 @@
+"""The path rule of K2's int8 instance, on the CPU.
+
+``implicit_conv.takes_resident_path`` chooses, from the launch's geometry
+alone, between the resident path (weight-stationary blocks, as many as the
+card holds at once, each converting its column's live weight units once and
+walking M-blocks) and the per-block body (one block per M-block and column).
+The launcher (``resident_path`` in ``csrc/implicit_conv.cu``) applies the
+same rule and refuses a launch whose choice differs, which the GPU tests hold
+on the card. Here, on an H100's 132 SMs:
+
+- every conv of the benchmark's served configurations (``hapm_bench/configs``)
+  takes the resident path at batch 2048, with every tile of its column live,
+  the most units a column can hold: the rule only gets easier with fewer;
+- batch 1, a window too large to hold twice with all its channels, and
+  a column with more weight units than a block holds take the per-block path;
+- the rule's shared-memory count fits the card where it says resident;
+- the resident window's pixels are padded to an odd number of 16-byte groups.
+"""
+import json
+from pathlib import Path
+
+import numpy as np
+import pytest
+
+from repro_torch.core import groups as TG
+from repro_torch.kernels import implicit_conv as IC
+from repro_torch.kernels.conv_lowering import conv_out_size
+from repro_torch.sparse import conv_plan as TP
+
+H100_SMS = 132
+CONFIGS = sorted((Path(__file__).resolve().parents[1] / "hapm_bench" / "configs").glob("*.json"))
+
+
+def _convs(model: dict):
+    """(k, cin, cout, stride, h) of every conv of the ResNet, in order."""
+    feat, cin = model["image_size"], model["in_channels"]
+    out = [(3, cin, model["widths"][0], 1, feat)]
+    cin = model["widths"][0]
+    for si, n_blocks in enumerate(model["stages"]):
+        width = model["widths"][si]
+        for bi in range(n_blocks):
+            stride = 2 if (si > 0 and bi == 0) else 1
+            out.append((3, cin, width, stride, feat))
+            o = -(-feat // stride)
+            out.append((3, width, width, 1, o))
+            if stride != 1 or cin != width:
+                out.append((1, cin, width, stride, feat))
+            feat, cin = o, width
+    return out
+
+
+def _launch(k, cin, cout, stride, h, batch, n_cu=12, packed=True):
+    """The rule's arguments for one conv's K2 launch (bm 'auto', every
+    group live), without the SM count."""
+    layout = TP.conv_gemm_layout(TG.fpga_conv_groups((k, k, cin, cout), n_cu), packed=packed)
+    plan = layout.plan(np.ones(layout.spec.num_groups, np.float32))
+    geo = layout.implicit_geometry()
+    ho = conv_out_size(h, k, stride, "SAME")
+    mb = IC.choose_m_block(ho, ho)
+    rows, cols = IC.window_shape(mb, k, k, stride)
+    window = rows * cols * IC.window_pitch(layout.tiles[0] * geo["cpk"])
+    return (batch * mb.bpi, mb.bm, layout.block[0], plan.idx.shape[1], window)
+
+
+SERVED = [(path.stem, conv) for path in CONFIGS
+          for conv in _convs(json.loads(path.read_text())["model"])]
+
+
+def test_the_served_configurations_are_found():
+    assert len(CONFIGS) == 2 and len(SERVED) == 42
+
+
+@pytest.mark.parametrize("config,conv", SERVED, ids=[f"{c}-{i % 21}" for i, (c, _) in
+                                                     enumerate(SERVED)])
+def test_served_convs_at_batch_2048_take_the_resident_path(config, conv):
+    spec = json.loads(next(p for p in CONFIGS if p.stem == config).read_text())["exec_spec"]
+    launch = _launch(*conv, 2048, n_cu=spec["n_cu"], packed=spec["packed"])
+    assert IC.takes_resident_path(*launch, H100_SMS)
+    need = IC.resident_smem_bytes(*launch[1:])
+    assert need <= IC.CARD_SHARED_BYTES
+
+
+@pytest.mark.parametrize("conv", sorted(set(c for _, c in SERVED)),
+                         ids=lambda c: "x".join(map(str, c)))
+@pytest.mark.parametrize("packed", [False, True])
+def test_batch_one_takes_the_per_block_path(conv, packed):
+    assert not IC.takes_resident_path(*_launch(*conv, 1, packed=packed), H100_SMS)
+    # the served batch takes the resident path in both layouts
+    assert IC.takes_resident_path(*_launch(*conv, 2048, packed=packed), H100_SMS)
+
+
+def test_a_window_too_large_to_hold_takes_the_per_block_path():
+    # 3x3, stride 7, 40 channels at 77x77: one M-block's window of all
+    # channels is 213 KB packed, two of them do not fit
+    launch = _launch(3, 40, 8, 7, 77, 4096, n_cu=4)
+    assert 2 * launch[4] > IC.CARD_SHARED_BYTES
+    assert not IC.takes_resident_path(*launch, H100_SMS)
+
+
+def test_a_column_too_large_to_hold_takes_the_per_block_path():
+    # 256 input channels packed: 32 weight units of 17 KB in one column
+    launch = _launch(3, 256, 64, 1, 8, 4096)
+    assert launch[3] == 32
+    assert IC.resident_smem_bytes(*launch[1:]) > IC.CARD_SHARED_BYTES
+    assert not IC.takes_resident_path(*launch, H100_SMS)
+
+
+@pytest.mark.parametrize("units,bm", [(1, 128), (2, 128), (8, 64)])
+def test_each_resident_block_walks_two_m_blocks(units, bm):
+    """At the threshold: resident from two M-blocks for each block the card
+    holds at once (two an SM where two fit, one where one does)."""
+    args = (bm, 128, units, 10 * 680)
+    need = IC.resident_smem_bytes(*args)
+    per_sm = min(2, IC.SM_SHARED_BYTES // (need + 1024))
+    assert per_sm == (1 if units == 8 else 2)
+    edge = 2 * H100_SMS * per_sm
+    assert IC.takes_resident_path(edge, *args, H100_SMS)
+    assert not IC.takes_resident_path(edge - 1, *args, H100_SMS)
+
+
+
+@pytest.mark.parametrize("cp,pitch", [(3, 3), (8, 8), (16, 16), (24, 48), (32, 48), (40, 48),
+                                      (64, 80), (128, 144)])
+def test_window_pixels_pad_to_an_odd_number_of_16_byte_groups(cp, pitch):
+    assert IC.window_pitch(cp) == pitch
