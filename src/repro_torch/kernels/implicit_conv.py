@@ -84,6 +84,13 @@ _BESIDE_WINDOW_BYTES = 16 * 1024
 
 LAUNCHES = "kernel.implicit_block_sparse_conv.launches"
 RESIDENT = "kernel.implicit_block_sparse_conv.resident"
+# K rows the launches multiply (M-blocks x live K-tiles x the tile's rows,
+# over the live columns), and those of them that hold a real tap (an input
+# channel's kx*ky taps, not slot or channel padding); the bound conv adds
+# both per call, the plain version's on the CPU included
+# (``sparse.conv_plan.make_sparse_conv``)
+K_ROWS = "kernel.implicit_block_sparse_conv.k_rows"
+TAP_ROWS = "kernel.implicit_block_sparse_conv.tap_rows"
 
 # The int8 instance's resident path (csrc/implicit_conv.cu, `resident_smem`
 # and `resident_path`, which this module mirrors): what one SM's shared
@@ -103,7 +110,7 @@ def launch_count() -> int:
 
 
 def reset_launch_count() -> None:
-    tracing.reset(LAUNCHES, RESIDENT)
+    tracing.reset(LAUNCHES, RESIDENT, K_ROWS, TAP_ROWS)
 
 
 def resident_launch_count() -> int:

@@ -1,6 +1,11 @@
 """The paper's validation network: a ResNet-type CNN with 21 conv layers
 for 32×32×3 / 10-class classification (He et al. CIFAR ResNet-20 + two 1×1
-projection shortcuts = 21 convs, ≈0.046 GOP/image as in paper §IV-B).
+projection shortcuts = 21 convs, ≈0.046 GOP/image as in paper §IV-B) — the
+default :class:`ResNetConfig` — and the ImageNet ResNets with bottleneck
+blocks, a 7×7/2 stem and a 3×3/2 max-pool (``block="bottleneck",
+stem="imagenet"``: ResNet-50 v1.5 in ``configs/resnet50_v15.py``). One
+walker (:func:`network`) lists every conv of a configuration; every
+function here that follows the network's topology reads it.
 
 Plain functions on tensors: params/state are nested dicts with the JAX
 package's keys, conv weights in HWIO layout (kx, ky, cin, cout) matching
@@ -18,9 +23,10 @@ the CUDA block-sparse kernels. Entry points that allocate take a
 from __future__ import annotations
 
 import dataclasses
+import functools
 import time
 from collections import OrderedDict
-from typing import Any, Optional, Tuple
+from typing import Any, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -74,8 +80,19 @@ class PermanentBindError(BindError, ValueError):
     working. The ladder skips retries and downgrades one rung."""
 
 
+BOTTLENECK_EXPANSION = 4      # a bottleneck block's output channels / its width
+_BLOCKS = ("basic", "bottleneck")
+_STEMS = ("cifar", "imagenet")
+
+
 @dataclasses.dataclass(frozen=True)
 class ResNetConfig:
+    """``block``: ``"basic"`` (two 3×3 convs) or ``"bottleneck"`` (1×1 →
+    3×3 at the block's stride → 1×1 to ``BOTTLENECK_EXPANSION`` × the
+    width; v1.5's placement of the stride). ``stem``: ``"cifar"`` (one 3×3
+    conv at stride 1) or ``"imagenet"`` (a 7×7 conv at stride 2, then a
+    3×3/2 max-pool). The repr leaves both out at their defaults, so the
+    default configuration prints (and fingerprints) as the JAX package's."""
     stages: Tuple[int, ...] = (3, 3, 3)
     widths: Tuple[int, ...] = (16, 32, 64)
     num_classes: int = 10
@@ -84,6 +101,96 @@ class ResNetConfig:
     quantized: bool = False            # QAT with Q2.5 / Q3.4
     bn_momentum: float = 0.9
     bn_eps: float = 1e-5
+    block: str = "basic"
+    stem: str = "cifar"
+
+    def __post_init__(self):
+        if self.block not in _BLOCKS or self.stem not in _STEMS:
+            raise ValueError(f"block must be one of {_BLOCKS} and stem one of "
+                             f"{_STEMS}, got {self.block!r}, {self.stem!r}")
+
+    def __repr__(self):
+        fields = [f for f in dataclasses.fields(self)
+                  if f.name not in ("block", "stem") or getattr(self, f.name) != f.default]
+        return (f"{type(self).__name__}("
+                + ", ".join(f"{f.name}={getattr(self, f.name)!r}" for f in fields) + ")")
+
+
+class ConvNode(NamedTuple):
+    """One conv of the network: its weight's path, its BN's key, kernel
+    size, stride, channels, input size (square), and whether a ReLU
+    follows its BN directly."""
+    path: Tuple[str, ...]
+    bn: str
+    k: int
+    stride: int
+    cin: int
+    cout: int
+    feat: int
+    relu: bool
+
+    @property
+    def out(self) -> int:
+        return -(-self.feat // self.stride)          # SAME
+
+
+class BlockNode(NamedTuple):
+    """A residual block: its main path's convs in order and its projection
+    shortcut (``None`` for the identity)."""
+    name: str
+    convs: Tuple[ConvNode, ...]
+    proj: Optional[ConvNode]
+
+
+class Network(NamedTuple):
+    """The network of a :class:`ResNetConfig`: the stem conv, whether a
+    3×3/2 max-pool follows it, the blocks, every conv in execution order
+    (each block's main path, then its projection), and the head's input
+    channels."""
+    stem: ConvNode
+    pool: bool
+    blocks: Tuple[BlockNode, ...]
+    convs: Tuple[ConvNode, ...]
+    head_channels: int
+
+
+def _pool_out(n: int) -> int:
+    """Output size of the 3×3/2 max-pool with one pixel of padding."""
+    return (n - 1) // 2 + 1
+
+
+@functools.lru_cache(maxsize=None)
+def network(cfg: ResNetConfig) -> Network:
+    """The one walk of ``cfg``'s network, derived once a configuration."""
+    imagenet = cfg.stem == "imagenet"
+    k0, s0 = (7, 2) if imagenet else (3, 1)
+    stem = ConvNode(("conv0", "w"), "bn0", k0, s0, cfg.in_channels, cfg.widths[0],
+                    cfg.image_size, True)
+    feat = _pool_out(stem.out) if imagenet else stem.out
+    cin = cfg.widths[0]
+    blocks, convs = [], [stem]
+    for si, (n_blocks, width) in enumerate(zip(cfg.stages, cfg.widths)):
+        for bi in range(n_blocks):
+            name = f"s{si}b{bi}"
+            stride = 2 if (si > 0 and bi == 0) else 1
+            node = lambda conv, bn, k, s, ci, co, f, relu: ConvNode(
+                (name, conv, "w"), bn, k, s, ci, co, f, relu)
+            out = -(-feat // stride)
+            if cfg.block == "basic":
+                cout = width
+                main = (node("conv1", "bn1", 3, stride, cin, width, feat, True),
+                        node("conv2", "bn2", 3, 1, width, width, out, False))
+            else:
+                cout = BOTTLENECK_EXPANSION * width
+                main = (node("conv1", "bn1", 1, 1, cin, width, feat, True),
+                        node("conv2", "bn2", 3, stride, width, width, feat, True),
+                        node("conv3", "bn3", 1, 1, width, cout, out, False))
+            proj = (node("proj", "bnp", 1, stride, cin, cout, feat, False)
+                    if stride != 1 or cin != cout else None)
+            blocks.append(BlockNode(name, main, proj))
+            convs += list(main) + ([proj] if proj is not None else [])
+            feat, cin = out, cout
+    return Network(stem, imagenet, tuple(blocks), tuple(convs), cin)
 
 
 def tree_from_numpy(tree: PyTree, device=None) -> PyTree:
@@ -115,6 +222,14 @@ def params_to_numpy(params: PyTree, state: PyTree = None):
                                    else tree_to_numpy(state))
 
 
+def _subtree(tree: dict, keys) -> dict:
+    """The dict at ``keys`` in ``tree`` (``tree`` itself for no key), made
+    where it is missing."""
+    for k in keys:
+        tree = tree.setdefault(k, {})
+    return tree
+
+
 def _conv_init(gen, kx, ky, cin, cout):
     fan_in = kx * ky * cin
     return torch.randn((kx, ky, cin, cout), generator=gen) * float(np.sqrt(2.0 / fan_in))
@@ -137,28 +252,15 @@ def init(gen, cfg: ResNetConfig, *, device=None) -> Tuple[PyTree, PyTree]:
     dev = resolve_device(device)
     if not isinstance(gen, torch.Generator):
         gen = torch.Generator().manual_seed(int(gen))
-    params: dict = {"conv0": {"w": _conv_init(gen, 3, 3, cfg.in_channels, cfg.widths[0])},
-                    "bn0": _bn_init(cfg.widths[0])}
-    state: dict = {"bn0": _bn_state_init(cfg.widths[0])}
-    cin = cfg.widths[0]
-    for si, (n_blocks, width) in enumerate(zip(cfg.stages, cfg.widths)):
-        for bi in range(n_blocks):
-            stride = 2 if (si > 0 and bi == 0) else 1
-            name = f"s{si}b{bi}"
-            blk = {
-                "conv1": {"w": _conv_init(gen, 3, 3, cin, width)},
-                "bn1": _bn_init(width),
-                "conv2": {"w": _conv_init(gen, 3, 3, width, width)},
-                "bn2": _bn_init(width),
-            }
-            st = {"bn1": _bn_state_init(width), "bn2": _bn_state_init(width)}
-            if stride != 1 or cin != width:
-                blk["proj"] = {"w": _conv_init(gen, 1, 1, cin, width)}
-                blk["bnp"] = _bn_init(width)
-                st["bnp"] = _bn_state_init(width)
-            params[name] = blk
-            state[name] = st
-            cin = width
+    net = network(cfg)
+    params: dict = {}
+    state: dict = {}
+    for c in net.convs:
+        p, s = _subtree(params, c.path[:-2]), _subtree(state, c.path[:-2])
+        p[c.path[-2]] = {"w": _conv_init(gen, c.k, c.k, c.cin, c.cout)}
+        p[c.bn] = _bn_init(c.cout)
+        s[c.bn] = _bn_state_init(c.cout)
+    cin = net.head_channels
     params["fc"] = {
         "w": torch.randn((cin, cfg.num_classes), generator=gen) * float(np.sqrt(1.0 / cin)),
         "b": torch.zeros((cfg.num_classes,)),
@@ -333,36 +435,47 @@ def _apply(params, state, x, cfg: ResNetConfig, train: bool, sparse):
                 return fn(h, w, stride=stride)   # per-call weight
             return fn(h, stride=stride)   # weight prepacked at bind time
 
+    def conv_bn(c, h, p, st, ns):
+        y = conv(c.path, h, _maybe_qw(p[c.path[-2]]["w"], cfg), c.stride)
+        y, ns[c.bn] = _bn(y, p[c.bn], st[c.bn], train, cfg)
+        return _maybe_qa(torch.relu(y), cfg) if c.relu else y
+
     # the accelerator ingests Q3.4 activations for every layer, the input
     # frame included — quantize it so the executed-int8 path can match the
     # QAT forward exactly on codes (images are 8-bit sources anyway)
+    net = network(cfg)
     new_state: dict = {}
-    h = conv(("conv0", "w"), _maybe_qa(x, cfg), _maybe_qw(params["conv0"]["w"], cfg), 1)
-    h, new_state["bn0"] = _bn(h, params["bn0"], state["bn0"], train, cfg)
-    h = _maybe_qa(torch.relu(h), cfg)
-    for si, n_blocks in enumerate(cfg.stages):
-        for bi in range(n_blocks):
-            name = f"s{si}b{bi}"
-            blk, st = params[name], state[name]
-            stride = 2 if (si > 0 and bi == 0) else 1
-            ns: dict = {}
-            y = conv((name, "conv1", "w"), h, _maybe_qw(blk["conv1"]["w"], cfg), stride)
-            y, ns["bn1"] = _bn(y, blk["bn1"], st["bn1"], train, cfg)
-            y = _maybe_qa(torch.relu(y), cfg)
-            y = conv((name, "conv2", "w"), y, _maybe_qw(blk["conv2"]["w"], cfg), 1)
-            y, ns["bn2"] = _bn(y, blk["bn2"], st["bn2"], train, cfg)
-            if "proj" in blk:
-                sc = conv((name, "proj", "w"), h, _maybe_qw(blk["proj"]["w"], cfg), stride)
-                sc, ns["bnp"] = _bn(sc, blk["bnp"], st["bnp"], train, cfg)
-            else:
-                sc = h
-            with tracing.span("cnn.residual", block=name):
-                h = _maybe_qa(torch.relu(y + sc), cfg)
-            new_state[name] = ns
+    h = conv_bn(net.stem, _maybe_qa(x, cfg), params, state, new_state)
+    if net.pool:
+        with tracing.span("cnn.pool"):
+            h = _max_pool(h)
+    for blk in net.blocks:
+        p, st = params[blk.name], state[blk.name]
+        ns: dict = {}
+        y = h
+        for c in blk.convs:
+            y = conv_bn(c, y, p, st, ns)
+        sc = h if blk.proj is None else conv_bn(blk.proj, h, p, st, ns)
+        with tracing.span("cnn.residual", block=blk.name):
+            h = _maybe_qa(torch.relu(y + sc), cfg)
+        new_state[blk.name] = ns
     with tracing.span("cnn.head"):
         pooled = _global_avg_pool(h)
         logits = pooled @ params["fc"]["w"] + params["fc"]["b"]
     return logits, (new_state if train else state)
+
+
+def _max_pool(h: torch.Tensor) -> torch.Tensor:
+    """The ImageNet stem's 3×3/2 max-pool with one pixel of padding, NHWC.
+    On int8 wire codes it pools the codes: max commutes with the monotone
+    requantization, so this is pool-then-requantize bit for bit (the codes
+    pass through float16, which holds every code exactly). Its input
+    follows a ReLU, so the library's −∞ padding is zero padding."""
+    hn = h.permute(0, 3, 1, 2)
+    if h.dtype == torch.int8:
+        return F.max_pool2d(hn.to(torch.float16), 3, 2, padding=1).to(
+            torch.int8).permute(0, 2, 3, 1)
+    return F.max_pool2d(hn, 3, 2, padding=1).permute(0, 2, 3, 1)
 
 
 # ---------------------------------------------------------------------------
@@ -818,6 +931,19 @@ def _bind_conv_layers(tree: PyTree, specs: PyTree, group_masks: PyTree,
     return table, plans, layouts, gms, bound
 
 
+def _relu_after(tree: PyTree, keys: tuple) -> bool:
+    """Whether a ReLU follows the conv at ``keys`` directly after its BN,
+    read from the tree's keys where the bind has no config: the stem, and
+    every conv of a block's main path but its last (``conv2`` of a basic
+    block, ``conv3`` of a bottleneck); never the projection."""
+    if len(keys) == 2:
+        return True
+    if keys[-2] == "proj":
+        return False
+    last = max(k for k in _get_path(tree, keys[:-2]) if k.startswith("conv"))
+    return keys[-2] != last
+
+
 def derive_group_masks(tree: PyTree, n_cu: int, *,
                        quantized: bool = False,
                        specs: PyTree = None) -> "dict[tuple, np.ndarray]":
@@ -895,8 +1021,9 @@ def bind_execution(
     :func:`apply_folded` detects the streamed exec and runs the whole
     residual dataflow on codes.
 
-    ``cfg`` is accepted for signature uniformity (layer topology comes
-    from the tree itself). ``specs``: GroupSpec tree (default:
+    ``cfg``: the network the tree holds; a folded bind reads each conv's
+    ReLU from its walk (:func:`network`), and without it from the tree's
+    keys. ``specs``: GroupSpec tree (default:
     ``conv_group_specs(params, spec.n_cu)``). ``group_masks``:
     (num_groups,) {0,1} per conv leaf (e.g. ``HAPMState.group_masks``);
     ``None`` derives masks from the weights' zero slabs.
@@ -929,14 +1056,14 @@ def bind_execution(
     t0 = time.perf_counter_ns()
     try:
         with tracing.span("cnn.bind"):
-            return _bind_execution(params, spec, specs, group_masks, quant_spec,
+            return _bind_execution(params, cfg, spec, specs, group_masks, quant_spec,
                                    bind_kernels, device)
     finally:
         tracing.count("cnn.binds")
         tracing.count("cnn.bind_ns", time.perf_counter_ns() - t0)
 
 
-def _bind_execution(params, spec, specs, group_masks, quant_spec, bind_kernels,
+def _bind_execution(params, cfg, spec, specs, group_masks, quant_spec, bind_kernels,
                     device) -> SparseConvExec:
     from ..kernels.block_sparse_matmul import KERNEL_MAX_BM
     from ..sparse.conv_plan import make_sparse_conv
@@ -965,12 +1092,15 @@ def _bind_execution(params, spec, specs, group_masks, quant_spec, bind_kernels,
         # binds calibrate weight scales only, activations stay on the
         # paper's fixed grid)
         out_q = Q.QuantSpec() if spec.streamed else None
+        relu_of = (None if cfg is None
+                   else {c.path: c.relu for c in network(cfg).convs})
 
         def bind_one(keys, w, layout, gm, plan, leaf):
             if not bind_kernels or plan.density >= spec.dense_fallback:
                 return None
             bias = _get_path(params, keys[:-1])["b"]
-            relu = keys[-2] in ("conv0", "conv1")   # ReLU directly after BN
+            relu = (_relu_after(params, keys) if relu_of is None
+                    else relu_of[keys])
             quant = Q.QuantSpec.calibrate(w) if spec.quantized else None
             if out_q is not None and quant.act_scale != out_q.act_scale:
                 raise PermanentBindError(
@@ -1090,23 +1220,8 @@ def _resolve_sparse(sparse, params, quantized: bool = False) -> Optional[SparseC
 
 def conv_layer_order(cfg: ResNetConfig):
     """Execution-order list of (param-path, stride, input_feature_size) for
-    every conv layer (21 for the default config)."""
-    order = [(("conv0", "w"), 1, cfg.image_size)]
-    feat = cfg.image_size
-    cin = cfg.widths[0]
-    for si, n_blocks in enumerate(cfg.stages):
-        for bi in range(n_blocks):
-            name = f"s{si}b{bi}"
-            stride = 2 if (si > 0 and bi == 0) else 1
-            width = cfg.widths[si]
-            out = -(-feat // stride)
-            order.append(((name, "conv1", "w"), stride, feat))
-            order.append(((name, "conv2", "w"), 1, out))
-            if stride != 1 or cin != width:
-                order.append(((name, "proj", "w"), stride, feat))
-            feat = out
-            cin = width
-    return order
+    every conv layer (21 for the default config, 53 for ResNet-50)."""
+    return [(c.path, c.stride, c.feat) for c in network(cfg).convs]
 
 
 def layer_dims(cfg: ResNetConfig, params: PyTree):
@@ -1134,22 +1249,12 @@ def fold_batchnorm(params: PyTree, state: PyTree, cfg: ResNetConfig) -> PyTree:
     folding unchanged — this is what the accelerator executes.
     """
     folded = {}
-
-    def fold_one(w, bnp, bns):
-        g = bnp["scale"] * _inv_std(bns["var"], cfg.bn_eps)
-        return w * g[None, None, None, :], bnp["bias"] - bns["mean"] * g
-
-    folded["conv0"] = dict(zip(("w", "b"), fold_one(params["conv0"]["w"], params["bn0"], state["bn0"])))
-    for si, n_blocks in enumerate(cfg.stages):
-        for bi in range(n_blocks):
-            name = f"s{si}b{bi}"
-            blk, st = params[name], state[name]
-            out = {}
-            out["conv1"] = dict(zip(("w", "b"), fold_one(blk["conv1"]["w"], blk["bn1"], st["bn1"])))
-            out["conv2"] = dict(zip(("w", "b"), fold_one(blk["conv2"]["w"], blk["bn2"], st["bn2"])))
-            if "proj" in blk:
-                out["proj"] = dict(zip(("w", "b"), fold_one(blk["proj"]["w"], blk["bnp"], st["bnp"])))
-            folded[name] = out
+    for c in network(cfg).convs:
+        blk, st = _get_path(params, c.path[:-2]), _get_path(state, c.path[:-2])
+        g = blk[c.bn]["scale"] * _inv_std(st[c.bn]["var"], cfg.bn_eps)
+        _subtree(folded, c.path[:-2])[c.path[-2]] = {
+            "w": blk[c.path[-2]]["w"] * g[None, None, None, :],
+            "b": blk[c.bn]["bias"] - st[c.bn]["mean"] * g}
     folded["fc"] = dict(params["fc"])
     return folded
 
@@ -1226,24 +1331,24 @@ def _apply_folded(folded, x, cfg: ResNetConfig, sparse, wire_quantize):
             y = torch.relu(y) if relu else y
             return requant(y) if wire else y
 
-    h = conv(("conv0", "w"), x, 1, relu=True)
-    for si, n_blocks in enumerate(cfg.stages):
-        for bi in range(n_blocks):
-            name = f"s{si}b{bi}"
-            blk = folded[name]
-            stride = 2 if (si > 0 and bi == 0) else 1
-            y = conv((name, "conv1", "w"), h, stride, relu=True)
-            y = conv((name, "conv2", "w"), y, 1, relu=False)
-            sc = (conv((name, "proj", "w"), h, stride, relu=False)
-                  if "proj" in blk else h)
-            with tracing.span("cnn.residual", block=name):
-                if wire:
-                    # residual add + ReLU on codes: int32 widen, clamp to the
-                    # post-ReLU code range — exact integer arithmetic
-                    h = torch.clamp(y.to(torch.int32) + sc.to(torch.int32),
-                                    0, int(max_code)).to(torch.int8)
-                else:
-                    h = torch.relu(y + sc)
+    net = network(cfg)
+    h = conv(net.stem.path, x, net.stem.stride, relu=True)
+    if net.pool:
+        with tracing.span("cnn.pool"):
+            h = _max_pool(h)
+    for blk in net.blocks:
+        y = h
+        for c in blk.convs:
+            y = conv(c.path, y, c.stride, c.relu)
+        sc = h if blk.proj is None else conv(blk.proj.path, h, blk.proj.stride, False)
+        with tracing.span("cnn.residual", block=blk.name):
+            if wire:
+                # residual add + ReLU on codes: int32 widen, clamp to the
+                # post-ReLU code range — exact integer arithmetic
+                h = torch.clamp(y.to(torch.int32) + sc.to(torch.int32),
+                                0, int(max_code)).to(torch.int8)
+            else:
+                h = torch.relu(y + sc)
     with tracing.span("cnn.head"):
         if wire:
             h = h.to(torch.float32) / wire_scale        # head: exact dequant

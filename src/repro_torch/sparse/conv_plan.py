@@ -47,6 +47,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from .. import tracing
 from ..core.groups import (FpgaConvGroupSpec, GroupSpec, TpuTileGroupSpec,
                            apply_group_mask)
 from ..core.masks import keystr, to_numpy, tree_flatten_with_path
@@ -658,6 +659,17 @@ def make_sparse_conv(layout: ConvGemmLayout, group_mask, *, bm="auto",
                               bias=packed_bias, scale=packed_scale,
                               out_scale=packed_out_scale)
     live_per_block = int(plan.cnt.sum())
+    # per M-block of a K2 launch: the K rows it multiplies, and those that
+    # hold a real tap (the channels of each live K-tile below cin, kx*ky
+    # rows each) — the recorder's K_ROWS / TAP_ROWS
+    k_rows_per_block = live_per_block * layout.block[0]
+    tap_rows_per_block = 0
+    if geo is not None:
+        kx, ky, cin = layout.spec.shape[:3]
+        cpk = geo["cpk"]
+        tap_rows_per_block = kx * ky * sum(
+            max(0, min(cpk, cin - int(t) * cpk))
+            for j in range(plan.idx.shape[0]) for t in plan.idx[j, :int(plan.cnt[j])])
     mms: dict = {}        # materializing kernels, keyed by effective bm
 
     def _materializing(bm_eff):
@@ -724,6 +736,8 @@ def make_sparse_conv(layout: ConvGemmLayout, group_mask, *, bm="auto",
                         activation_dsb=activation_dsb,
                         count_skips=count_skips)
                     out2d, skips = res if count_skips else (res, None)
+                    tracing.count(IC.K_ROWS, B * mbk.bpi * k_rows_per_block)
+                    tracing.count(IC.TAP_ROWS, B * mbk.bpi * tap_rows_per_block)
                     o = IC.crop_output(out2d, mbk, B, ho, wo)
                     y = layout.unpack_output(
                         o.reshape(B * ho * wo, -1), (B, ho, wo))
