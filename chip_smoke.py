@@ -13,7 +13,10 @@ Run ``python3 chip_smoke.py`` from the repository root. It
 2. holds each kernel against its plain PyTorch version on the GPU at the
    layer shapes of the full-width ``ResNetConfig()`` (bit equality for int8
    outputs and skip counters, <= 1e-4 for f32, K2's f32 instance also
-   bit-identical across two launches), timing kernel, plain version
+   bit-identical across two launches; K2's int8 modes without activation-DSB,
+   ``int8`` and ``served`` (int8 codes out, as the served main path binds
+   every conv, also at its batch of 2048), on the compacted K operands the
+   bind builds), timing kernel, plain version
    and ``F.conv2d`` as a yardstick, K1's int8 rows also beside
    ``torch._int_mm`` on the same packed operands (``*_ms``: device time per
    launch with the launches queued back to back; ``*_call_ms``: one call on
@@ -161,12 +164,14 @@ counts the padded lanes and rows the kernel's output array carries.
 fixed point, the executed-sparsity bench, the serving bench, the paper's
 tables, the transformer and the recurrent LM families, LM training), each
 counted from zero just before it is driven;
-``launches_by_path`` splits them. K2's entry also has ``by_mode``: its int8
-(``streamed``, ``int8``) and f32 instances at the representative geometry,
-streamed at batch 1 in both layouts, each beside its bound and the cuDNN
-yardstick, and f32 at the training batch in both layouts
-(``f32_batch128``). K1's ``by_mode`` has its int8 (``streamed``) and f32
-forward rows there and its f32 dX at the training batch in both layouts
+``launches_by_path`` splits them, and K2's ``compact_launches_by_path``
+gives its launches on compacted K operands on each path. K2's entry also
+has ``by_mode``: its int8 (``streamed``, ``int8``, ``served``) and f32
+instances at the representative geometry, ``served`` also packed and at
+the served cells' batch (``served_batch2048``, both layouts), streamed at
+batch 1 in both layouts, each beside its bound and the cuDNN yardstick,
+and f32 at the training batch in both layouts (``f32_batch128``). K1's
+``by_mode`` has its int8 (``streamed``) and f32 forward rows there and its f32 dX at the training batch in both layouts
 (``f32_dx_batch128``, ``f32_dx_batch128_packed``), and
 ``paper_tables_f32_forward`` its f32 forward at each level of the
 block-sparse bench (256 x 1024 x 1024, (128, 128) tiles) beside
@@ -280,6 +285,7 @@ GRAD_REL_TOL = 1e-2     # f32 training grads through the kernels vs dense autogr
 N_CU = 12
 SPARSITY = 0.5
 TRAIN_BATCH = 128
+SERVED_BATCH = 2048     # the served CIFAR cells' bucket (hapm_bench's infer_b2048)
 TRAIN_LR = 0.05
 
 
@@ -404,6 +410,12 @@ def resource_usage(name: str) -> dict:
             out[fn] = {k: int(fields[k]) for k in ("REG", "LOCAL") if fields.get(k, "").isdigit()}
             fn = None
     return out
+
+
+def path_counts() -> dict:
+    """The four kernels' launches since the last reset (``kernels.launch_counts``)
+    and, beside them, K2's launches on compacted K operands (``k2_compact``)."""
+    return {**kernels.launch_counts(), "k2_compact": IC.compact_launch_count()}
 
 
 def sync(device) -> None:
@@ -552,10 +564,14 @@ def make_case(geom, packed: bool, mode: str, batch: int, n_cu: int, device,
     would hand them over: packed (masked) weight, dispatch table, epilogue
     rows, the padded activation (implicit kernel) and, unless ``k1`` is
     False, the packed patch matrix (matmul kernel). ``mode``: "f32", "int8"
-    (f32 out) or "streamed" (int8 codes out, activation-DSB with skip
-    counting). Half the groups are pruned at random and the last f_block
-    column entirely, so one output tile column has cnt == 0 in the unpacked
-    layout."""
+    (f32 out), "streamed" (int8 codes out, activation-DSB with skip
+    counting) or "served" (int8 codes out without activation-DSB, as the
+    served main path binds every conv). K2's int8 modes without
+    activation-DSB run on the compacted K operands the bind builds
+    (``IC.compact_k``), kernel and plain version alike, a strided 1x1 at
+    stride 1 on every s-th pixel as the bind runs it. Half the groups are
+    pruned at random and the last f_block column entirely, so one output
+    tile column has cnt == 0 in the unpacked layout."""
     name, H, stride, k, cin, cout = geom
     spec = fpga_conv_groups((k, k, cin, cout), n_cu)
     layout = conv_gemm_layout(spec, packed=packed)
@@ -579,20 +595,27 @@ def make_case(geom, packed: bool, mode: str, batch: int, n_cu: int, device,
         scale = layout.pack_bias(quant.dequant_row(cout, device))
         out_scale = (layout.pack_bias(torch.full((cout,), QuantSpec().act_scale,
                                                  device=device))
-                     if mode == "streamed" else None)
+                     if mode in ("streamed", "served") else None)
     plan = plan_from_tile_mask(layout.tile_mask(gm), layout.block)
+    geo = layout.implicit_geometry()
+    compact = (IC.compact_k(wp.contiguous(), plan.idx, plan.cnt, kx=k, ky=k, cin=cin,
+                            cpk=geo["cpk"], slot=geo["slot"], block=layout.block)
+               if mode in ("int8", "served") else None)
     idx = torch.from_numpy(plan.idx).to(device)
     cnt = torch.from_numpy(plan.cnt).to(device)
     pbias = layout.pack_bias(torch.from_numpy(bias).to(device))
     ho = conv_out_size(H, k, stride, "SAME")
     mb = IC.choose_m_block(ho, ho)
-    geo = layout.implicit_geometry()
-    xp = IC.pad_input(xin, k, k, stride, "SAME", mb, layout.tiles[0] * geo["cpk"])
+    # compacted, a strided 1x1 runs as the bind runs it: the stride-1 conv of
+    # every s-th pixel
+    xk, k2_stride = ((xin[:, ::stride, ::stride], 1) if compact is not None and k == 1
+                     else (xin, stride))
+    xp = IC.pad_input(xk, k, k, k2_stride, "SAME", mb, layout.tiles[0] * geo["cpk"])
     bm1 = adaptive_bm(batch * ho * ho)
     p2d = (_pad_rows(layout.pack_patches(im2col_patches(xin, k, k, stride, "SAME")), bm1)[0]
            if k1 else torch.empty((batch * mb.bpi * mb.bm, 0), device=device))
     itemsize = xin.element_size()
-    out_itemsize = 1 if mode == "streamed" else 4
+    out_itemsize = 1 if mode in ("streamed", "served") else 4
     real_out = batch * ho * ho * cout
     live_tiles = int(plan.cnt.sum())
     live_k = len({int(t) for j in range(plan.idx.shape[0])
@@ -601,6 +624,9 @@ def make_case(geom, packed: bool, mode: str, batch: int, n_cu: int, device,
     n_rows = 1 + (scale is not None) + (out_scale is not None)
     table_bytes = plan.idx.nbytes + plan.cnt.nbytes
     w_bytes = live_tiles * layout.block[0] * layout.block[1] * itemsize
+    if compact is not None:     # each column's compacted rows and their table
+        w_bytes = compact.k_rows * layout.block[1]
+        table_bytes += compact.k_rows * 4 + compact.rows.numel() * 4
     ops = 2 * batch * ho * ho * live_elems
     peak = PEAK_OPS_S["f32" if mode == "f32" else "int8"]
 
@@ -629,10 +655,10 @@ def make_case(geom, packed: bool, mode: str, batch: int, n_cu: int, device,
         "x": x_t, "w": w_t, "layout": layout,
         "common": dict(w=wp.contiguous(), idx=idx, cnt=cnt, bias=pbias,
                        scale=scale, out_scale=out_scale),
-        "k2": dict(xp=xp.contiguous(), kx=k, ky=k, stride=stride, mb=mb,
+        "k2": dict(xp=xp.contiguous(), kx=k, ky=k, stride=k2_stride, mb=mb,
                    block=layout.block, cpk=geo["cpk"], slot=geo["slot"],
                    relu=True, activation_dsb=(mode == "streamed"),
-                   count_skips=(mode == "streamed")),
+                   count_skips=(mode == "streamed"), compact=compact),
         "k1": dict(x=p2d.contiguous(), block=layout.block, bm=bm1, relu=True),
         "bound_k2": bound(k2_in, batch * mb.bpi * mb.bm),
         "bound_k1": bound(k1_in, p2d.shape[0]),
@@ -839,8 +865,10 @@ def per_forward(cfg, rows, batch):
 
 
 def phase_kernels(cfg, device, batch: int, reps: int, plain_reps: int):
-    """K1 and K2 at every distinct layer geometry, both layouts, all three
-    modes at ``batch``, then the representative geometry streamed at batch 1.
+    """K1 and K2 at every distinct layer geometry, both layouts, the f32,
+    int8 and streamed modes at ``batch``, K2 alone in the served mode there
+    and at the served cells' batch (``SERVED_BATCH``, where K2 takes its
+    resident path), then the representative geometry streamed at batch 1.
     Returns (worst errors, the representative row, {mode: row} of the
     representative geometry unpacked)."""
     rs = np.random.RandomState(7)
@@ -853,13 +881,19 @@ def phase_kernels(cfg, device, batch: int, reps: int, plain_reps: int):
     rep, by_mode = {}, {}
     for geom in layer_geometries(cfg):
         for packed in (False, True):
-            for mode in ("f32", "int8", "streamed"):
-                case = make_case(geom, packed, mode, batch, N_CU, device, rs)
+            for mode, b in (("f32", batch), ("int8", batch), ("streamed", batch),
+                            ("served", batch), ("served", SERVED_BATCH)):
+                k1 = mode != "served"
+                case = make_case(geom, packed, mode, b, N_CU, device, rs, k1=k1)
                 is_rep = geom[1:] == rep_geom and not packed and mode == "streamed"
                 case["profile"] = is_rep
-                row = kernel_case_row(case, device, reps, plain_reps, worst)
-                if geom[1:] == rep_geom and not packed:
-                    by_mode[mode] = row
+                row = kernel_case_row(case, device, reps, plain_reps, worst, k1=k1)
+                if geom[1:] == rep_geom:
+                    key = mode if b == batch else f"{mode}_batch{b}"
+                    if not packed:
+                        by_mode[key] = row
+                    elif mode == "served":
+                        by_mode[f"{key}_packed"] = row
                 if is_rep:
                     rep = row
                 cases_out.append(row)
@@ -1735,7 +1769,7 @@ def phase_price(cfg, device, card):
         on_card[name] = sim(params, board, device)
         sync(device)
         wall[name] = time.perf_counter() - t0
-    launched = kernels.launch_counts()
+    launched = path_counts()
     diffs = {}
     for name, params, board in runs:
         d = report_differences(on_card[name], sim(params, board, cpu))
@@ -1790,7 +1824,7 @@ def phase_sparse_cnn_bench(card):
     kernels.reset_launch_counts()
     t0 = time.time()
     report = bench.run(bench.parse_args(["--fast", "--out", out]))
-    launched = kernels.launch_counts()
+    launched = path_counts()
     at50 = next(r for r in report["rows"] if r["target_group_sparsity"] == 0.5)
     emit("sparse_cnn_bench", card=card, seconds=time.time() - t0,
          out=os.path.relpath(out, ROOT), config=report["config"], launches=launched,
@@ -1826,7 +1860,7 @@ def phase_serving_cnn_bench(card):
     kernels.reset_launch_counts()
     t0 = time.time()
     report = bench.run(bench.parse_args(["--smoke", "--out", SERVING_CNN_JSON]))
-    launched = kernels.launch_counts()
+    launched = path_counts()
     seconds = time.time() - t0
     chaos = report["chaos"]
     with open(SERVING_REF_JSON) as f:
@@ -1903,7 +1937,7 @@ def phase_paper_tables(card, device, worst):
         results[name] = run_torch.run_one(name, args, results)
         sync(device)
         seconds[name] = time.time() - t0
-    launched = kernels.launch_counts()
+    launched = path_counts()
     run_torch.write_json(PAPER_TABLES_JSON, args, results, seconds, [])
 
     cpu_args = argparse.Namespace(device="cpu")
@@ -2512,7 +2546,7 @@ def phase_lm_transformer(card, device) -> dict:
             p32[arch] = p
         del p
     rows["pipeline"] = lm_pipeline_and_restore(p32.pop("granite-moe-3b-a800m"), mesh, device)
-    launched = kernels.launch_counts()
+    launched = path_counts()
     if any(launched.values()):
         raise AssertionError(f"lm_transformer: the LM path launched this repo's kernels "
                              f"{launched}")
@@ -2606,7 +2640,7 @@ def phase_lm_recurrent(card, device) -> dict:
         if LM_RECURRENT_LAYERS[arch]:
             cfg = dataclasses.replace(cfg, num_layers=LM_RECURRENT_LAYERS[arch])
         rows[arch], _ = phase_lm_full(arch, cfg, device, card, mesh, "lm_recurrent")
-    launched = kernels.launch_counts()
+    launched = path_counts()
     if any(launched.values()):
         raise AssertionError(f"lm_recurrent: the LM path launched this repo's kernels "
                              f"{launched}")
@@ -3086,7 +3120,7 @@ def phase_lm_train(card, device, worst) -> tuple:
         wi_in = lm_wi_operands(p32, cfg32, device)
         ran = lm_wi_path(wi_in)
         sync(device)
-        launched = kernels.launch_counts()
+        launched = path_counts()
         path_s = time.time() - t0
         checks = phase_lm_train_checks(p32, params, cfg, device)
         del params
@@ -3131,6 +3165,8 @@ def kernels_line(paths, worst, rep, rep_gw, rep_i8, by_mode, k1_by_mode):
                           "library_ms": rep["library_ms"],
                           "shape": {k: rep[k] for k in (*shape_keys, "mode")}})
             if t == "k2":
+                lines[-1]["compact_launches_by_path"] = {
+                    p: counts["k2_compact"] for p, counts in paths.items()}
                 lines[-1]["by_mode"] = {
                     m: {"packed": r["packed"], "batch": r["batch"],
                         **{k: r[f"k2_{k}"] for k in timing[:-1]},
@@ -3239,7 +3275,7 @@ def main(argv=None) -> int:
                          implicit=False, dense_fallback=2.0, n_cu=N_CU),
             buckets, models, frames, devices, sizes=[sizes[3]],
             kernel_name="block_sparse_matmul")
-    paths = {"serve": kernels.launch_counts()}
+    paths = {"serve": path_counts()}
 
     phase_default_cli(device)
     phase_ladder(cfg, cnn.ExecSpec(packed=True, **streamed), buckets, models,
@@ -3254,7 +3290,7 @@ def main(argv=None) -> int:
     kernels.reset_launch_counts()
     train_u = phase_train("train_unpacked", qat, False, train_model, batch, device)
     train_p = phase_train("train_packed", qat, True, train_model, batch, device)
-    paths["train"] = kernels.launch_counts()
+    paths["train"] = path_counts()
 
     phase_train_grad_parity(dataclasses.replace(cfg, quantized=False), train_model,
                             batch, device)
@@ -3267,7 +3303,7 @@ def main(argv=None) -> int:
     # ---- main path 3, fixed point: K4 under fixed_point_matmul
     kernels.reset_launch_counts()
     phase_fixed_point(device)
-    paths["fixed_point"] = kernels.launch_counts()
+    paths["fixed_point"] = path_counts()
     phase_fixed_point_timing(device, reps)
 
     # ---- main path 4, pricing: simulate on the card (counts reset inside,

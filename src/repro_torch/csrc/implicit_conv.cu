@@ -60,6 +60,28 @@
 //   * per block: one block per (M-block, N-tile), the column's units
 //     streamed through a raw ring for that M-block alone, as below: batch-1
 //     and small-batch serving, pricing, windows or columns too large to hold.
+// Compacted K (kCompact, every int8 launch bound without activation DSB
+// whose window of all channels the per-block body holds): a packed K-tile
+// gives each channel ceil8(kx*ky) rows, so a 1x1 tile holds one tap in
+// eight rows and a 3x3 tile nine in sixteen, and no K step of either is
+// all padding. The bind (compact_k in kernels/implicit_conv.py) lists for
+// each column j only the tap rows of its live tiles (tiles in the table's
+// order, channels below cin, taps row-major), krows[j] of them rounded up
+// to 32, and gathers those rows of the packed weight into a compacted
+// weight of kpad rows beside a table of each row's (channel, dy, dx). Both
+// bodies then walk a column's rows in units of 128 (the last one partial)
+// and gather A fragments through the table's window offsets (channel
+// included) from the window of all channels; the weight ring, transpose,
+// n8 masks, window ring, staging and epilogue are as below. The per-block
+// body forms a unit's offsets when it converts the unit (the table rides in
+// the raw stage), the resident one all of them once. ResNet-50's 1x1s
+// multiply 8x fewer rows, its 3x3s 1.78x, and its 1x1 columns of 256-1024
+// channels fit the resident path. The plan and the tables the dispatch
+// keeps are unchanged, int32 sums are exact in any order, and the codes are
+// those of the padded tiles. Binds with activation DSB keep the padded
+// tiles: their skip is decided per K-tile window. So does the slow path
+// below (a compacted unit mixes K-tiles); the resident rule counts the
+// widest column's compacted units and their offsets.
 // The per-block body, whose products, skips and epilogue the resident one
 // shares:
 //   * products on the tensor cores: mma.sync m16n8k32 (s8 x s8 -> s32) per
@@ -189,6 +211,8 @@ struct ConvGeom {
   int n_mb;               // M-blocks of the launch (B * bpi)
   int resident;           // int8: the resident path (weights held, M-blocks walked)
   int stage_out;          // int8 resident: int8 codes out, rows written 16 bytes a store
+  int compact;            // int8: compacted K operands (each column's tap rows, a table)
+  int kpad;               // compact: rows of the compacted weight and of each column's table
 };
 
 // ---------------------------------------------------------------------------
@@ -259,23 +283,29 @@ struct ImmaSmem {
   size_t raw, stage, woff, live16, lst, nz, run, win, total;
 };
 
+//
+// On compacted K operands a raw unit carries its 128 table entries after
+// its weight rows, the offset table holds two units' rows (one per packed
+// buffer), and there are no step lists: nothing is skipped.
 __host__ __device__ inline ImmaSmem imma_smem(const ConvGeom& g, int full) {
   const size_t bk16 = (g.bk + 15) / 16 * 16;
+  const size_t lists = g.compact ? 0 : align16(static_cast<size_t>(g.max_nnz) * 4);
   ImmaSmem s;
   size_t o = static_cast<size_t>(2) * kBufWords * 4;
   s.raw = o;
-  s.stage = static_cast<size_t>(unit_shape(g, full).rows) * kMaxBn;  // bytes of one raw unit
+  s.stage = g.compact ? static_cast<size_t>(kUnitK) * (kMaxBn + 4)
+                      : static_cast<size_t>(unit_shape(g, full).rows) * kMaxBn;  // bytes of one raw unit
   o += kStages * s.stage;
   s.woff = o;
-  o += align16(bk16 * 4);
+  o += g.compact ? 2 * kUnitK * 4 : align16(bk16 * 4);
   s.live16 = o;
-  o += align16(bk16 / 16 * 4);
+  o += g.compact ? 0 : align16(bk16 / 16 * 4);
   s.lst = o;
-  o += align16(static_cast<size_t>(g.max_nnz) * 4);
+  o += lists;
   s.nz = o;
-  o += align16(static_cast<size_t>(g.max_nnz) * 4);
+  o += lists;
   s.run = o;
-  o += align16(static_cast<size_t>(g.max_nnz) * 4);
+  o += lists;
   s.win = o;
   o += align16(static_cast<size_t>(g.rows) * g.cols * (full ? g.Cp : g.cpk));
   s.total = o;
@@ -331,11 +361,34 @@ __device__ __forceinline__ void load_window(int8_t* win, const int8_t* __restric
   }
 }
 
+// Copy one 4x4-byte block of the weight into its 16 bytes of a raw stage
+// (row r of the block at byte 4r): rows p, p + n_total, ... (those below
+// `rows_in`), lanes n .. n + 3 of the column (those below bn); zeros
+// elsewhere.
+__device__ __forceinline__ void copy_block(int8_t* dst, const int8_t* p, const ConvGeom& g,
+                                           int rows_in, int n) {
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    const bool in = r < rows_in && n < g.bn;
+    if (in && g.wvec) {
+      cp_async<4>(dst + 4 * r, p + static_cast<size_t>(r) * g.n_total);
+    } else {
+      int v = 0;
+      if (in)
+#pragma unroll
+        for (int c = 0; c < 4; ++c)
+          if (n + c < g.bn)
+            v |= static_cast<int>(static_cast<uint8_t>(p[r * g.n_total + c])) << (8 * c);
+      *reinterpret_cast<int*>(dst + 4 * r) = v;
+    }
+  }
+}
+
 // Copy this thread's 4x4-byte blocks of unit x (K-tiles list[x.s0 ..], rows
 // [x.lo, x.lo + x.rt) of each, columns [j*bn, j*bn + bn)) into its 16 bytes
-// per block of a raw stage (row r of a block at byte 4r); zero past bk and
-// bn. Only the thread that copies a block reads it back (convert_unit), so
-// the copy needs no barrier, only cp.async.wait_group.
+// per block of a raw stage; zero past bk and bn. Only the thread that
+// copies a block reads it back (convert_unit), so the copy needs no
+// barrier, only cp.async.wait_group.
 __device__ __forceinline__ void load_unit(int8_t* stage, const int8_t* __restrict__ w,
                                            const ConvGeom& g, int j, const int* list, Unit x,
                                            int tid) {
@@ -348,23 +401,49 @@ __device__ __forceinline__ void load_unit(int8_t* stage, const int8_t* __restric
     const int k = x.lo + kb * 4 - slot * x.rt;
     const int tile = min(max(list[x.s0 + slot], 0), g.Cp / g.cpk - 1);  // in range if unused
     const int n = (blk % (kMaxBn / 4)) * 4;
-    int8_t* dst = stage + blk * 16;
+    copy_block(stage + blk * 16,
+               w + (static_cast<size_t>(tile) * g.bk + k) * g.n_total + j * g.bn + n, g,
+               g.bk - k, n);
+  }
+}
+
+// Compacted K operands: copy rows [k0, k0 + rt) of column j's compacted
+// weight (rt a multiple of 32) as load_unit does, and, where `tab` is
+// given, the unit's 128 table entries after the stage's kUnitK * kMaxBn
+// weight bytes (threads 0..31, 16 bytes each; the entries past the
+// column's rows are -1). Each thread reads back only what it copied.
+__device__ __forceinline__ void load_rows(int8_t* stage, const int8_t* __restrict__ w,
+                                          const int* __restrict__ tab, const ConvGeom& g, int j,
+                                          int k0, int rt, int tid) {
 #pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      const int8_t* p =
-          w + (static_cast<size_t>(tile) * g.bk + k + r) * g.n_total + j * g.bn + n;
-      const bool in = k + r < g.bk && n < g.bn;
-      if (in && g.wvec) {
-        cp_async<4>(dst + 4 * r, p);
-      } else {
-        int v = 0;
-        if (in)
-#pragma unroll
-          for (int c = 0; c < 4; ++c)
-            if (n + c < g.bn) v |= static_cast<int>(static_cast<uint8_t>(p[c])) << (8 * c);
-        *reinterpret_cast<int*>(dst + 4 * r) = v;
-      }
-    }
+  for (int q = 0; q < kWBlocks; ++q) {
+    const int blk = tid + kImmaThreads * q;
+    const int kb = blk / (kMaxBn / 4);
+    if (kb * 4 >= rt) break;
+    const int n = (blk % (kMaxBn / 4)) * 4;
+    copy_block(stage + blk * 16,
+               w + static_cast<size_t>(k0 + kb * 4) * g.n_total + j * g.bn + n, g, 4, n);
+  }
+  if (tab != nullptr && tid < kUnitK / 4)
+    cp_async<16>(stage + kUnitK * kMaxBn + 16 * tid,
+                 tab + static_cast<size_t>(j) * g.kpad + k0 + 4 * tid);
+}
+
+// A compacted row's window offset: its table entry (channel << 16 | dy << 8
+// | dx) at `pitch` bytes a window pixel, -1 for a padding row.
+__device__ __forceinline__ int tap_offset(int e, int cols, int pitch) {
+  return e < 0 ? -1 : (((e >> 8) & 0xff) * cols + (e & 0xff)) * pitch + (e >> 16);
+}
+
+// The window offsets of a landed compacted unit's rows, from the table
+// entries its threads 0..31 copied (load_rows), into woff[0 .. 128).
+__device__ __forceinline__ void unit_offsets(const int8_t* stage, int* woff, const ConvGeom& g,
+                                             int pitch, int tid) {
+  if (tid < kUnitK / 4) {
+    const int4 e = *reinterpret_cast<const int4*>(stage + kUnitK * kMaxBn + 16 * tid);
+    *reinterpret_cast<int4*>(woff + 4 * tid) =
+        make_int4(tap_offset(e.x, g.cols, pitch), tap_offset(e.y, g.cols, pitch),
+                  tap_offset(e.z, g.cols, pitch), tap_offset(e.w, g.cols, pitch));
   }
 }
 
@@ -448,14 +527,19 @@ __device__ __forceinline__ void imma_flush_frags(const int (&acc)[NTW][4], const
 }
 
 // The per-block body: one block per (M-block i, N-tile j), the column's
-// weight units streamed through the raw ring for this M-block alone.
-template <int MT>
+// weight units streamed through the raw ring for this M-block alone. On
+// compacted K operands (kCompact) unit u is rows [128u, 128u + 128) of the
+// column's krows[j] rows, which carries its table entries; its window
+// offsets are formed when it is converted, beside its packed buffer.
+template <int MT, bool kCompact>
 __device__ __forceinline__ void imma_per_block(const int8_t* __restrict__ xp,
                                                const int8_t* __restrict__ w,
                                                const int* __restrict__ idx,
                                                const int* __restrict__ cnt, const Epilogue& ep,
                                                void* __restrict__ out, int out_int8,
-                                               int* __restrict__ skips, const ConvGeom& g) {
+                                               int* __restrict__ skips,
+                                               const int* __restrict__ ktab,
+                                               const int* __restrict__ krows, const ConvGeom& g) {
   constexpr int WN = kImmaWarps / MT;  // warps along N per m16 tile
   constexpr int NTW = 16 / WN;  // n8 tiles per warp
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -493,7 +577,10 @@ __device__ __forceinline__ void imma_per_block(const int8_t* __restrict__ xp,
   const int bk16 = (g.bk + 15) / 16 * 16;
   const int live = cnt[j];
   const int* idx_j = idx + static_cast<size_t>(j) * g.max_nnz;
-  const bool compact = g.full && g.dsb;
+  const bool skip_list = g.full && g.dsb;
+  const int nrows = kCompact ? krows[j] : 0;  // compacted: the column's rows
+  // rows of compacted unit u
+  auto rows_of = [&](int u) { return min(kUnitK, nrows - u * kUnitK); };
 
   // requested first, in flight together: the window (all channels), the
   // weights of the column's first unit of tiles (from the table's first
@@ -504,9 +591,13 @@ __device__ __forceinline__ void imma_per_block(const int8_t* __restrict__ xp,
   for (int q = 0; q < kUnitK / 16; ++q) first[q] = q < us.tpu && q < g.max_nnz ? idx_j[q] : 0;
   if (live > 0) {
     if (g.full) load_window<1>(win, xp, g, b, r0, q0, 0, g.Cp, g.Cp, tid);
-    load_unit(raw, w, g, j, first, unit_at(0, us, bk16, min(live, us.tpu)), tid);
+    if constexpr (kCompact)
+      load_rows(raw, w, ktab, g, j, 0, rows_of(0), tid);
+    else
+      load_unit(raw, w, g, j, first, unit_at(0, us, bk16, min(live, us.tpu)), tid);
   }
-  for (int s = tid; s < live; s += kImmaThreads) lst[s] = idx_j[s];
+  if constexpr (!kCompact)
+    for (int s = tid; s < live; s += kImmaThreads) lst[s] = idx_j[s];
   for (int c = tid; c < g.bn; c += kImmaThreads) {
     const int n = j * g.bn + c;
     s_rows[0][c] = ep.scale != nullptr ? ep.scale[n] : 0.0f;
@@ -514,8 +605,8 @@ __device__ __forceinline__ void imma_per_block(const int8_t* __restrict__ xp,
     s_rows[2][c] = ep.out_scale != nullptr ? ep.out_scale[n] : 0.0f;
   }
   // K index -> window offset of its (channel, tap), -1 on patch padding;
-  // which 16-row K groups hold any real row
-  for (int k0 = 0; k0 < bk16; k0 += kImmaThreads) {
+  // which 16-row K groups hold any real row (compacted: formed per unit)
+  for (int k0 = 0; k0 < (kCompact ? 0 : bk16); k0 += kImmaThreads) {
     const int k = k0 + tid;
     int wo = -1;
     if (k < bk16) {
@@ -547,7 +638,7 @@ __device__ __forceinline__ void imma_per_block(const int8_t* __restrict__ xp,
   }
 
   int n_run = live;
-  if (compact && live > 0) {
+  if (skip_list && live > 0) {
     // skip flag of every live step from the staged window (the whole window
     // of its K-tile's cpk channels), one warp per step; then every warp
     // forms the same list of the steps that run, in ascending order
@@ -579,9 +670,10 @@ __device__ __forceinline__ void imma_per_block(const int8_t* __restrict__ xp,
     }
     __syncwarp();
   }
-  if (!compact) run = lst;
+  if (!skip_list) run = lst;
   int skipped = live - n_run;
-  const int n_units = us.upt > 1 ? n_run * us.upt : (n_run + us.tpu - 1) / us.tpu;
+  const int n_units = kCompact ? (nrows + kUnitK - 1) / kUnitK
+                      : us.upt > 1 ? n_run * us.upt : (n_run + us.tpu - 1) / us.tpu;
 
   // output rows of this thread's two fragment rows, and their window offsets
   const int mt = warp / WN;
@@ -598,10 +690,13 @@ __device__ __forceinline__ void imma_per_block(const int8_t* __restrict__ xp,
   }
   // a K-tile of one 16- or 32-deep step (bk16 = 16 or 32) reads the same
   // table entries at every step
-  const int4 h_wa = *reinterpret_cast<const int4*>(woff + 4 * tq);
-  const int4 h_wb = bk16 >= 32 ? *reinterpret_cast<const int4*>(woff + 16 + 4 * tq)
-                               : make_int4(-1, -1, -1, -1);
-  const bool h_live = bk16 == 16 ? live16[0] != 0 : (bk16 == 32 && (live16[0] | live16[1]));
+  int4 h_wa = make_int4(-1, -1, -1, -1), h_wb = h_wa;
+  bool h_live = false;
+  if constexpr (!kCompact) {
+    h_wa = *reinterpret_cast<const int4*>(woff + 4 * tq);
+    if (bk16 >= 32) h_wb = *reinterpret_cast<const int4*>(woff + 16 + 4 * tq);
+    h_live = bk16 == 16 ? live16[0] != 0 : (bk16 == 32 && (live16[0] | live16[1]));
+  }
 
   int acc[NTW][4];
 #pragma unroll
@@ -613,20 +708,39 @@ __device__ __forceinline__ void imma_per_block(const int8_t* __restrict__ xp,
   // kStages-1 are requested now (one cp.async group each, empty past the
   // last unit), unit 0 has landed (requested from the table's first entries
   // before the skips were known; again if a skip changed them)
-  if (n_units > 0) {
-    const Unit x0 = unit_at(0, us, bk16, n_run);
-    bool same = true;
-    if (compact)
-      for (int q = 0; q < x0.ns; ++q) same &= nz[q] != 0;
-    if (!same) {
-      load_unit(raw, w, g, j, run, x0, tid);
-      cp_async_wait_all();
+  auto request_unit = [&](int8_t* stage, int v) {
+    if constexpr (kCompact)
+      load_rows(stage, w, ktab, g, j, v * kUnitK, rows_of(v), tid);
+    else
+      load_unit(stage, w, g, j, run, unit_at(v, us, bk16, n_run), tid);
+  };
+  // a landed unit into packed buffer u & 1 (compacted: its window offsets
+  // beside it)
+  auto convert = [&](const int8_t* stage, int u) {
+    if constexpr (kCompact) {
+      convert_unit(stage, bufs + (u & 1) * kBufWords, &s_n8[u % 3], rows_of(u), tid);
+      unit_offsets(stage, woff + (u & 1) * kUnitK, g, g.Cp, tid);
+    } else {
+      const Unit x = unit_at(u, us, bk16, n_run);
+      convert_unit(stage, bufs + (u & 1) * kBufWords, &s_n8[u % 3], x.ns * x.rt, tid);
     }
-    convert_unit(raw, bufs, &s_n8[0], x0.ns * x0.rt, tid);
+  };
+  if (n_units > 0) {
+    if constexpr (!kCompact) {
+      const Unit x0 = unit_at(0, us, bk16, n_run);
+      bool same = true;
+      if (skip_list)
+        for (int q = 0; q < x0.ns; ++q) same &= nz[q] != 0;
+      if (!same) {
+        load_unit(raw, w, g, j, run, x0, tid);
+        cp_async_wait_all();
+      }
+    }
+    convert(raw, 0);
   }
 #pragma unroll
   for (int v = 1; v < kStages; ++v) {
-    if (v < n_units) load_unit(raw + v * L.stage, w, g, j, run, unit_at(v, us, bk16, n_run), tid);
+    if (v < n_units) request_unit(raw + v * L.stage, v);
     cp_async_commit();
   }
   __syncthreads();
@@ -659,8 +773,8 @@ __device__ __forceinline__ void imma_per_block(const int8_t* __restrict__ xp,
   unsigned any_n8 = 0;  // n8 tiles whose weights hold a nonzero code
   bool tile_on = true;
   for (int u = 0; u < n_units; ++u) {
-    const Unit x = unit_at(u, us, bk16, n_run);
-    if (!g.full && x.lo == 0) {
+    const Unit x = kCompact ? Unit{0, 1, u * kUnitK, rows_of(u)} : unit_at(u, us, bk16, n_run);
+    if (!kCompact && !g.full && x.lo == 0) {
       // slow path (one K-tile per unit): this step's (rows, cols, cpk)
       // window, and its skip
       load_window<1>(win, xp, g, b, r0, q0, run[x.s0] * g.cpk, g.cpk, g.cpk, tid);
@@ -681,7 +795,22 @@ __device__ __forceinline__ void imma_per_block(const int8_t* __restrict__ xp,
     const unsigned n8 = n8_unit >> nt0;
     if (tid == 0) s_n8[(u + 2) % 3] = 0;
     any_n8 |= n8_unit;
-    if (tile_on && (n8 & ((1u << NTW) - 1u)) != 0) {
+    if (kCompact && (n8 & ((1u << NTW) - 1u)) != 0) {
+      // the unit's rows against their window offsets, each a real tap of
+      // some channel (a whole unit: four K steps in straight-line code)
+      const int* buf = bufs + (u & 1) * kBufWords;
+      const int* wo = woff + (u & 1) * kUnitK;
+      if (x.rt == kUnitK) {
+#pragma unroll
+        for (int d = 0; d < kUnitK; d += 32)
+          step32(buf, d / 4 + tq, n8, win, *reinterpret_cast<const int4*>(wo + d + 4 * tq),
+                 *reinterpret_cast<const int4*>(wo + d + 16 + 4 * tq));
+      } else {
+        for (int d = 0; d < x.rt; d += 32)
+          step32(buf, d / 4 + tq, n8, win, *reinterpret_cast<const int4*>(wo + d + 4 * tq),
+                 *reinterpret_cast<const int4*>(wo + d + 16 + 4 * tq));
+      }
+    } else if (!kCompact && tile_on && (n8 & ((1u << NTW) - 1u)) != 0) {
       const int* buf = bufs + (u & 1) * kBufWords;
       for (int q = 0; q < x.ns; ++q) {
         const int8_t* wn = win + (g.full ? run[x.s0 + q] * g.cpk : 0);
@@ -709,16 +838,13 @@ __device__ __forceinline__ void imma_per_block(const int8_t* __restrict__ xp,
     }
     if (u + 1 < n_units) {
       // unit u+1 has landed (all but the newest kStages-2 groups); the
-      // packed buffer it goes to was last read by unit u-1, which every
-      // warp finished before the barrier one iteration ago
+      // packed buffer it goes to (and its offsets) was last read by unit
+      // u-1, which every warp finished before the barrier one iteration ago
       cp_async_wait<kStages - 2>();
-      const Unit x1 = unit_at(u + 1, us, bk16, n_run);
-      convert_unit(raw + ((u + 1) % kStages) * L.stage, bufs + ((u + 1) & 1) * kBufWords,
-                   &s_n8[(u + 1) % 3], x1.ns * x1.rt, tid);
+      convert(raw + ((u + 1) % kStages) * L.stage, u + 1);
     }
     const int v = u + kStages;  // into the raw stage unit u has left
-    if (v < n_units)
-      load_unit(raw + (u % kStages) * L.stage, w, g, j, run, unit_at(v, us, bk16, n_run), tid);
+    if (v < n_units) request_unit(raw + (u % kStages) * L.stage, v);
     cp_async_commit();
     __syncthreads();
   }
@@ -748,7 +874,9 @@ __host__ __device__ inline int imma_mt(int bm) {
 // window offset table, the 16-row liveness flags, the column's live tiles,
 // each live step's nonzero flag for the M-block at hand, the units' n8
 // masks, the staging rows of output codes (16 an m16 tile) and the ring of
-// M-block windows (all Cp channels).
+// M-block windows (all Cp channels). On compacted K operands: the widest
+// column's kpad / 128 units, a window offset for each of their rows, and
+// no liveness flags or step lists.
 struct ResSmem {
   int units;
   size_t woff, live16, lst, nz, n8, stg, win, wstride, total;
@@ -757,17 +885,19 @@ struct ResSmem {
 __host__ __device__ inline ResSmem resident_smem(const ConvGeom& g) {
   const size_t bk16 = (g.bk + 15) / 16 * 16;
   const UnitShape us = unit_shape(g, 1);
+  const size_t lists = g.compact ? 0 : align16(static_cast<size_t>(g.max_nnz) * 4);
   ResSmem s;
-  s.units = us.upt > 1 ? g.max_nnz * us.upt : (g.max_nnz + us.tpu - 1) / us.tpu;
+  s.units = g.compact ? g.kpad / kUnitK
+            : us.upt > 1 ? g.max_nnz * us.upt : (g.max_nnz + us.tpu - 1) / us.tpu;
   size_t o = static_cast<size_t>(s.units) * kBufWords * 4;
   s.woff = o;
-  o += align16(bk16 * 4);
+  o += g.compact ? align16(static_cast<size_t>(g.kpad) * 4) : align16(bk16 * 4);
   s.live16 = o;
-  o += align16(bk16 / 16 * 4);
+  o += g.compact ? 0 : align16(bk16 / 16 * 4);
   s.lst = o;
-  o += align16(static_cast<size_t>(g.max_nnz) * 4);
+  o += lists;
   s.nz = o;
-  o += align16(static_cast<size_t>(g.max_nnz) * 4);
+  o += lists;
   s.n8 = o;
   o += align16(static_cast<size_t>(s.units) * 4);
   s.stg = o;
@@ -827,14 +957,18 @@ __device__ __forceinline__ void convert_in_place(int* buf, unsigned* n8_mask, in
 // through the staging rows of each m16 tile in 16-byte stores (f32
 // outputs, and rows that do not allow them, through the fragments). The
 // WN warps of an m16 tile take every WN-th n8 tile, so that the live tiles
-// at the front of a column (9 of 16 on a 64-channel conv) split evenly.
-template <int MT>
+// at the front of a column (9 of 16 on a 64-channel conv) split evenly. On
+// compacted K operands (kCompact) the column's krows[j] rows are held in
+// 128-row units, their window offsets formed once from its table.
+template <int MT, bool kCompact>
 __device__ __forceinline__ void imma_resident(const int8_t* __restrict__ xp,
                                               const int8_t* __restrict__ w,
                                               const int* __restrict__ idx,
                                               const int* __restrict__ cnt, const Epilogue& ep,
                                               void* __restrict__ out, int out_int8,
-                                              int* __restrict__ skips, const ConvGeom& g) {
+                                              int* __restrict__ skips,
+                                              const int* __restrict__ ktab,
+                                              const int* __restrict__ krows, const ConvGeom& g) {
   constexpr int WN = kImmaWarps / MT;  // warps along N per m16 tile
   constexpr int NTW = 16 / WN;         // n8 tiles per warp
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -864,7 +998,10 @@ __device__ __forceinline__ void imma_resident(const int8_t* __restrict__ xp,
   const int bk16 = (g.bk + 15) / 16 * 16;
   const int live = cnt[j];
   const int* idx_j = idx + static_cast<size_t>(j) * g.max_nnz;
-  const int n_units = us.upt > 1 ? live * us.upt : (live + us.tpu - 1) / us.tpu;
+  const int nrows = kCompact ? krows[j] : 0;  // compacted: the column's rows
+  auto rows_of = [&](int u) { return min(kUnitK, nrows - u * kUnitK); };
+  const int n_units = kCompact ? (nrows + kUnitK - 1) / kUnitK
+                      : us.upt > 1 ? live * us.upt : (live + us.tpu - 1) / us.tpu;
 
   // one cp.async group: the window of M-block i into ring slot s (empty past
   // the last M-block, and for a column with no live tile)
@@ -880,19 +1017,27 @@ __device__ __forceinline__ void imma_resident(const int8_t* __restrict__ xp,
   // once a block: every weight unit of the column (one group, each unit raw
   // in its own packed buffer), then the first window; beside them the tile
   // list, the epilogue rows and the K table
-  for (int u = 0; u < n_units; ++u)
-    load_unit(reinterpret_cast<int8_t*>(bufs + u * kBufWords), w, g, j, idx_j,
-              unit_at(u, us, bk16, live), tid);
+  for (int u = 0; u < n_units; ++u) {
+    int8_t* buf = reinterpret_cast<int8_t*>(bufs + u * kBufWords);
+    if constexpr (kCompact)
+      load_rows(buf, w, nullptr, g, j, u * kUnitK, rows_of(u), tid);
+    else
+      load_unit(buf, w, g, j, idx_j, unit_at(u, us, bk16, live), tid);
+  }
   cp_async_commit();
   request(blockIdx.x, 0);
-  for (int s = tid; s < live; s += kImmaThreads) lst[s] = idx_j[s];
+  if constexpr (!kCompact)
+    for (int s = tid; s < live; s += kImmaThreads) lst[s] = idx_j[s];
   for (int c = tid; c < g.bn; c += kImmaThreads) {
     const int n = j * g.bn + c;
     s_rows[0][c] = ep.scale != nullptr ? ep.scale[n] : 0.0f;
     s_rows[1][c] = ep.bias != nullptr ? ep.bias[n] : 0.0f;
     s_rows[2][c] = ep.out_scale != nullptr ? ep.out_scale[n] : 0.0f;
   }
-  for (int k0 = 0; k0 < bk16; k0 += kImmaThreads) {
+  if constexpr (kCompact)
+    for (int k = tid; k < n_units * kUnitK; k += kImmaThreads)
+      woff[k] = tap_offset(ktab[static_cast<size_t>(j) * g.kpad + k], g.cols, g.wpitch);
+  for (int k0 = 0; k0 < (kCompact ? 0 : bk16); k0 += kImmaThreads) {
     const int k = k0 + tid;
     int wo = -1;
     if (k < bk16) {
@@ -912,7 +1057,7 @@ __device__ __forceinline__ void imma_resident(const int8_t* __restrict__ xp,
   cp_async_wait<1>();  // the weights (the first window may be in flight)
   __syncthreads();
   for (int u = 0; u < n_units; ++u) {
-    const Unit x = unit_at(u, us, bk16, live);
+    const Unit x = kCompact ? Unit{0, 1, u * kUnitK, rows_of(u)} : unit_at(u, us, bk16, live);
     convert_in_place(bufs + u * kBufWords, &n8s[u], x.ns * x.rt, tid);
   }
   const Epilogue eps{ep.scale != nullptr ? s_rows[0] : nullptr,
@@ -955,10 +1100,13 @@ __device__ __forceinline__ void imma_resident(const int8_t* __restrict__ xp,
     const int ow = m % g.block_ow;
     off[h] = valid[h] ? ((oh * g.stride) * g.cols + ow * g.stride) * g.wpitch : 0;
   }
-  const int4 h_wa = *reinterpret_cast<const int4*>(woff + 4 * tq);
-  const int4 h_wb = bk16 >= 32 ? *reinterpret_cast<const int4*>(woff + 16 + 4 * tq)
-                               : make_int4(-1, -1, -1, -1);
-  const bool h_live = bk16 == 16 ? live16[0] != 0 : (bk16 == 32 && (live16[0] | live16[1]));
+  int4 h_wa = make_int4(-1, -1, -1, -1), h_wb = h_wa;
+  bool h_live = false;
+  if constexpr (!kCompact) {
+    h_wa = *reinterpret_cast<const int4*>(woff + 4 * tq);
+    if (bk16 >= 32) h_wb = *reinterpret_cast<const int4*>(woff + 16 + 4 * tq);
+    h_live = bk16 == 16 ? live16[0] != 0 : (bk16 == 32 && (live16[0] | live16[1]));
+  }
 
   int acc[NTW][4];
   // one 32- or 16-deep K step of this warp's m16 tile against its n8 tiles
@@ -1027,8 +1175,25 @@ __device__ __forceinline__ void imma_resident(const int8_t* __restrict__ xp,
       // a nonzero code (lane padding multiplies zeros)
       const int hi = 32 - __clz(n8s[u]);
       if (nt0 >= hi) continue;
-      const Unit x = unit_at(u, us, bk16, live);
       const int* buf = bufs + u * kBufWords;
+      if constexpr (kCompact) {
+        // the unit's rows against their window offsets, each a real tap of
+        // some channel (a whole unit: four K steps in straight-line code)
+        const int* wo = woff + u * kUnitK;
+        const int rt = rows_of(u);
+        if (rt == kUnitK) {
+#pragma unroll
+          for (int d = 0; d < kUnitK; d += 32)
+            step32(buf, d / 4 + tq, hi, win, *reinterpret_cast<const int4*>(wo + d + 4 * tq),
+                   *reinterpret_cast<const int4*>(wo + d + 16 + 4 * tq));
+        } else {
+          for (int d = 0; d < rt; d += 32)
+            step32(buf, d / 4 + tq, hi, win, *reinterpret_cast<const int4*>(wo + d + 4 * tq),
+                   *reinterpret_cast<const int4*>(wo + d + 16 + 4 * tq));
+        }
+        continue;
+      }
+      const Unit x = unit_at(u, us, bk16, live);
       for (int q = 0; q < x.ns; ++q) {
         if (g.dsb && nz[x.s0 + q] == 0) continue;
         const int8_t* wn = win + lst[x.s0 + q] * g.cpk;
@@ -1106,16 +1271,17 @@ __device__ __forceinline__ void imma_resident(const int8_t* __restrict__ xp,
   }
 }
 
-template <int MT, bool kResident>
+template <int MT, bool kResident, bool kCompact>
 __global__ void __launch_bounds__(kImmaThreads, 2)
 implicit_conv_kernel_imma(const int8_t* __restrict__ xp, const int8_t* __restrict__ w,
                           const int* __restrict__ idx, const int* __restrict__ cnt, Epilogue ep,
                           void* __restrict__ out, int out_int8, int* __restrict__ skips,
+                          const int* __restrict__ ktab, const int* __restrict__ krows,
                           ConvGeom g) {
   if constexpr (kResident) {
-    imma_resident<MT>(xp, w, idx, cnt, ep, out, out_int8, skips, g);
+    imma_resident<MT, kCompact>(xp, w, idx, cnt, ep, out, out_int8, skips, ktab, krows, g);
   } else {
-    imma_per_block<MT>(xp, w, idx, cnt, ep, out, out_int8, skips, g);
+    imma_per_block<MT, kCompact>(xp, w, idx, cnt, ep, out, out_int8, skips, ktab, krows, g);
   }
 }
 
@@ -1539,13 +1705,14 @@ static cudaError_t allow_shared(Kernel kernel, size_t smem, size_t static_smem) 
                               static_cast<int>(smem));
 }
 
-template <int MT>
+template <int MT, bool kCompact>
 static cudaError_t launch_imma_mt(const void* xp, const void* w, const int* idx, const int* cnt,
                                   const Epilogue& ep, void* out, int out_int8, int* skips,
-                                  int n_blocks, int n_sm, const ConvGeom& g, cudaStream_t stream) {
+                                  const int* ktab, const int* krows, int n_blocks, int n_sm,
+                                  const ConvGeom& g, cudaStream_t stream) {
   if (g.resident) {
     // as many blocks as the card holds at once, each walking M-blocks
-    auto kernel = implicit_conv_kernel_imma<MT, true>;
+    auto kernel = implicit_conv_kernel_imma<MT, true, kCompact>;
     const size_t smem = resident_smem(g).total;
     cudaError_t err = allow_shared(kernel, smem, kImmaStaticBytes);
     if (err != cudaSuccess) return err;
@@ -1556,18 +1723,30 @@ static cudaError_t launch_imma_mt(const void* xp, const void* w, const int* idx,
     const dim3 grid(n_blocks < walkers ? n_blocks : walkers, g.n_total / g.bn);
     kernel<<<grid, dim3(kImmaThreads), smem, stream>>>(static_cast<const int8_t*>(xp),
                                                    static_cast<const int8_t*>(w), idx, cnt, ep,
-                                                   out, out_int8, skips, g);
+                                                   out, out_int8, skips, ktab, krows, g);
     return cudaGetLastError();
   }
-  auto kernel = implicit_conv_kernel_imma<MT, false>;
+  auto kernel = implicit_conv_kernel_imma<MT, false, kCompact>;
   const size_t smem = imma_smem(g, g.full).total;
   cudaError_t err = allow_shared(kernel, smem, kImmaStaticBytes);
   if (err != cudaSuccess) return err;
   const dim3 grid(n_blocks, g.n_total / g.bn);
   kernel<<<grid, dim3(kImmaThreads), smem, stream>>>(static_cast<const int8_t*>(xp),
                                                  static_cast<const int8_t*>(w), idx, cnt, ep, out,
-                                                 out_int8, skips, g);
+                                                 out_int8, skips, ktab, krows, g);
   return cudaGetLastError();
+}
+
+template <int MT>
+static cudaError_t launch_imma_k(const void* xp, const void* w, const int* idx, const int* cnt,
+                                 const Epilogue& ep, void* out, int out_int8, int* skips,
+                                 const int* ktab, const int* krows, int n_blocks, int n_sm,
+                                 const ConvGeom& g, cudaStream_t stream) {
+  if (g.compact)
+    return launch_imma_mt<MT, true>(xp, w, idx, cnt, ep, out, out_int8, skips, ktab, krows,
+                                    n_blocks, n_sm, g, stream);
+  return launch_imma_mt<MT, false>(xp, w, idx, cnt, ep, out, out_int8, skips, ktab, krows,
+                                   n_blocks, n_sm, g, stream);
 }
 
 static int largest_copy(uintptr_t ptr, int Cp, int wc) {
@@ -1579,7 +1758,8 @@ static int largest_copy(uintptr_t ptr, int Cp, int wc) {
 
 static cudaError_t launch_imma(const void* xp, const void* w, const int* idx, const int* cnt,
                                const Epilogue& ep, void* out, int out_int8, int* skips,
-                               int n_blocks, int resident, ConvGeom g, cudaStream_t stream) {
+                               const int* ktab, const int* krows, int n_blocks, int resident,
+                               ConvGeom g, cudaStream_t stream) {
   // the caller's choice of path must be the rule's on this card; the
   // resident window's pixels are padded to an odd number of 16-byte groups
   // (with 32 or 64 channels packed the byte loads of an A fragment meet in
@@ -1595,26 +1775,29 @@ static cudaError_t launch_imma(const void* xp, const void* w, const int* idx, co
   // all channels of the window at once where they fit, else one K-tile's
   // (the kernel's static shared memory holds the epilogue rows); the
   // resident path always holds all of them
+  // (compacted K operands only where the per-block body holds all of
+  // them: `takes_compact_path` on the host)
   const size_t budget = kMaxSharedBytes - kImmaStaticBytes;
   g.full = g.resident || imma_smem(g, 1).total <= budget ? 1 : 0;
   if (!g.resident && imma_smem(g, g.full).total > budget) return cudaErrorInvalidValue;
+  if (g.compact && imma_smem(g, 1).total > budget) return cudaErrorInvalidValue;
   g.vec = largest_copy(reinterpret_cast<uintptr_t>(xp), g.Cp, g.full ? g.Cp : g.cpk);
   g.wvec = (reinterpret_cast<uintptr_t>(w) % 4 == 0 && g.n_total % 4 == 0 && g.bn % 4 == 0);
   g.stage_out = out_int8 && g.bn % 16 == 0 && g.n_total % 16 == 0 &&
                 reinterpret_cast<uintptr_t>(out) % 16 == 0;
   switch (imma_mt(g.bm)) {
     case 1:
-      return launch_imma_mt<1>(xp, w, idx, cnt, ep, out, out_int8, skips, n_blocks, n_sm, g,
-                               stream);
+      return launch_imma_k<1>(xp, w, idx, cnt, ep, out, out_int8, skips, ktab, krows, n_blocks,
+                              n_sm, g, stream);
     case 2:
-      return launch_imma_mt<2>(xp, w, idx, cnt, ep, out, out_int8, skips, n_blocks, n_sm, g,
-                               stream);
+      return launch_imma_k<2>(xp, w, idx, cnt, ep, out, out_int8, skips, ktab, krows, n_blocks,
+                              n_sm, g, stream);
     case 4:
-      return launch_imma_mt<4>(xp, w, idx, cnt, ep, out, out_int8, skips, n_blocks, n_sm, g,
-                               stream);
+      return launch_imma_k<4>(xp, w, idx, cnt, ep, out, out_int8, skips, ktab, krows, n_blocks,
+                              n_sm, g, stream);
     default:
-      return launch_imma_mt<8>(xp, w, idx, cnt, ep, out, out_int8, skips, n_blocks, n_sm, g,
-                               stream);
+      return launch_imma_k<8>(xp, w, idx, cnt, ep, out, out_int8, skips, ktab, krows, n_blocks,
+                              n_sm, g, stream);
   }
 }
 
@@ -1665,14 +1848,18 @@ static cudaError_t launch_mma(const void* xp, const void* w, const int* idx, con
 // the operand's float type (f32 for int8 codes) or int8 codes when out_scale
 // is given; skips (B*bpi, n_total/bn) int32 or null; resident (int8 codes)
 // the path `resident_path` gives this launch on the current card, the
-// resident one where nonzero. Returns the launch's cudaError_t (0 =
-// launched; a resident flag the rule does not give is refused).
+// resident one where nonzero. Compacted K operands (int8 codes, no dsb):
+// ktab (n_total/bn, kpad) int32 table entries and krows (n_total/bn) int32
+// row counts, multiples of 32, with w the compacted weight (kpad, n_total),
+// kpad a multiple of 128; else ktab and krows null. Returns the launch's
+// cudaError_t (0 = launched; a resident flag the rule does not give, or
+// compacted operands whose window does not fit, is refused).
 extern "C" int hapm_implicit_block_sparse_conv(
     const void* xp, const void* w, const int* idx, const int* cnt, const float* scale,
-    const float* bias, const float* out_scale, void* out, int* skips, int B, int Hp, int Wp, int Cp,
-    int n_total, int max_nnz, int kx, int ky, int stride, int block_oh, int block_ow, int spi,
-    int bpi, int bm, int bk, int bn, int cpk, int slot, int dtype, int relu, int dsb,
-    int resident, void* stream) {
+    const float* bias, const float* out_scale, void* out, int* skips, const int* ktab,
+    const int* krows, int B, int Hp, int Wp, int Cp, int n_total, int max_nnz, int kx, int ky,
+    int stride, int block_oh, int block_ow, int spi, int bpi, int bm, int bk, int bn, int cpk,
+    int slot, int dtype, int relu, int dsb, int resident, int kpad, void* stream) {
   using namespace hapm;
   ConvGeom g;
   g.Hp = Hp; g.Wp = Wp; g.Cp = Cp;
@@ -1684,8 +1871,11 @@ extern "C" int hapm_implicit_block_sparse_conv(
   g.cols = (block_ow - 1) * stride + ky;
   g.dsb = dsb;
   g.full = g.vec = g.wvec = g.wpitch = g.resident = g.stage_out = 0;
+  g.compact = ktab != nullptr;
+  g.kpad = kpad;
   if (bm < 1 || bm > kMaxBn || bn < 1 || bn > kMaxBn || n_total % bn || Cp % cpk || slot < 1 ||
-      block_oh * block_ow > bm || (dsb && dtype != kI8))
+      block_oh * block_ow > bm || (dsb && dtype != kI8) ||
+      (g.compact && (dtype != kI8 || dsb || krows == nullptr || kpad < kUnitK || kpad % kUnitK)))
     return static_cast<int>(cudaErrorInvalidValue);
   const Epilogue ep{scale, bias, out_scale, relu};
   const int out_int8 = (dtype == kI8 && out_scale != nullptr) ? 1 : 0;
@@ -1702,7 +1892,8 @@ extern "C" int hapm_implicit_block_sparse_conv(
       err = launch_mma<__nv_bfloat16>(xp, w, idx, cnt, ep, out, skips, n_blocks, g, st);
       break;
     case kI8:
-      err = launch_imma(xp, w, idx, cnt, ep, out, out_int8, skips, n_blocks, resident, g, st);
+      err = launch_imma(xp, w, idx, cnt, ep, out, out_int8, skips, ktab, krows, n_blocks, resident,
+                        g, st);
       break;
     default:
       err = cudaErrorInvalidValue;

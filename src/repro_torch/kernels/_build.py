@@ -125,7 +125,7 @@ def load() -> ctypes.CDLL:
     P, I = ctypes.c_void_p, ctypes.c_int
     lib.hapm_block_sparse_matmul.argtypes = [P] * 8 + [I] * 10 + [P]
     lib.hapm_block_sparse_matmul.restype = I
-    lib.hapm_implicit_block_sparse_conv.argtypes = [P] * 9 + [I] * 22 + [P]
+    lib.hapm_implicit_block_sparse_conv.argtypes = [P] * 11 + [I] * 23 + [P]
     lib.hapm_implicit_block_sparse_conv.restype = I
     lib.hapm_block_sparse_grad_weight.argtypes = [P] * 7 + [I] * 12 + [P]
     lib.hapm_block_sparse_grad_weight.restype = I

@@ -47,6 +47,22 @@ Two implementations of the one function live here:
   converting its column's weights once and walking M-blocks; the launch's
   geometry picks it (:func:`takes_resident_path`, which the C launcher
   checks), and the recorder counts it (``RESIDENT``).
+
+**Compacted K** (int8 codes, without ``activation_dsb``): a packed K-tile
+gives each input channel a slot of ``ceil8(kx·ky)`` rows, so a 1×1 tile
+holds one tap in eight rows and a 3×3 tile nine in sixteen. The bind
+(:func:`compact_k`, once a layer) lists, for each output column, only the
+rows of its live tiles that hold a channel's tap — tiles in the table's
+order, channels, taps row-major — padded to 32, and gathers those rows of
+the packed weight into a dense weight of 128-row units beside a table of
+each row's (channel, dy, dx). Both bodies of the int8 instance then walk a
+column's units and gather A fragments through that table; the plan, the
+tile mask and the dispatch table stay as they are, and int32 sums are exact
+in any order, so the codes are those of the padded operands. It takes the
+launches whose window of all channels one block holds
+(:func:`takes_compact_path`); the recorder counts them (``COMPACT``). A
+bind with ``activation_dsb`` keeps the padded tiles: its skip is decided
+per K-tile window.
 - :func:`implicit_block_sparse_conv_plain` — the same function in plain
   PyTorch on the same packed operands and tables; the CPU path and the
   yardstick the kernel is held to on the card.
@@ -56,6 +72,7 @@ from __future__ import annotations
 import functools
 from typing import NamedTuple, Optional, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -84,23 +101,31 @@ _BESIDE_WINDOW_BYTES = 16 * 1024
 
 LAUNCHES = "kernel.implicit_block_sparse_conv.launches"
 RESIDENT = "kernel.implicit_block_sparse_conv.resident"
-# K rows the launches multiply (M-blocks x live K-tiles x the tile's rows,
-# over the live columns), and those of them that hold a real tap (an input
+COMPACT = "kernel.implicit_block_sparse_conv.compact"
+# K rows the launches multiply (M-blocks x, over the live columns, the live
+# K-tiles x the tile's rows, or on compacted operands the column's tap rows
+# rounded up to 32), and those of them that hold a real tap (an input
 # channel's kx*ky taps, not slot or channel padding); the bound conv adds
 # both per call, the plain version's on the CPU included
 # (``sparse.conv_plan.make_sparse_conv``)
 K_ROWS = "kernel.implicit_block_sparse_conv.k_rows"
 TAP_ROWS = "kernel.implicit_block_sparse_conv.tap_rows"
 
-# The int8 instance's resident path (csrc/implicit_conv.cu, `resident_smem`
-# and `resident_path`, which this module mirrors): what one SM's shared
-# memory holds, a block's reserve beside it, the static shared memory of the
-# int8 kernel, a packed 128-row weight unit, and the windows in flight.
+# The int8 instance's shared memory (csrc/implicit_conv.cu, `imma_smem`,
+# `resident_smem` and `resident_path`, which this module mirrors): what one
+# SM holds, a block's reserve beside it, the static shared memory of the
+# int8 kernel, a packed 128-row weight unit, the windows in flight, and
+# what the per-block body holds beside its window on compacted operands
+# (two packed units, a raw ring of three units with their 128 table
+# entries, and two units' window offsets).
 SM_SHARED_BYTES = 233472
 _BLOCK_RESERVE_BYTES = 1024
 _IMMA_STATIC_BYTES = 4 * KERNEL_MAX_BN * 4 + KERNEL_MAX_BN + 16
+_UNIT_ROWS = 128
 _UNIT_BYTES = 32 * (KERNEL_MAX_BN + 8) * 4
 _WINDOW_RING = 2
+_COMPACT_BESIDE_WINDOW_BYTES = (2 * _UNIT_BYTES + 3 * _UNIT_ROWS * (KERNEL_MAX_BN + 4)
+                                + 2 * _UNIT_ROWS * 4)
 
 
 def launch_count() -> int:
@@ -110,13 +135,19 @@ def launch_count() -> int:
 
 
 def reset_launch_count() -> None:
-    tracing.reset(LAUNCHES, RESIDENT, K_ROWS, TAP_ROWS)
+    tracing.reset(LAUNCHES, RESIDENT, COMPACT, K_ROWS, TAP_ROWS)
 
 
 def resident_launch_count() -> int:
     """Launches of the int8 instance that took the resident path (the
     recorder's ``kernel.implicit_block_sparse_conv.resident``)."""
     return tracing.counter(RESIDENT)
+
+
+def compact_launch_count() -> int:
+    """Launches of the int8 instance on compacted K operands (the
+    recorder's ``kernel.implicit_block_sparse_conv.compact``)."""
+    return tracing.counter(COMPACT)
 
 
 def window_pitch(cp: int) -> int:
@@ -126,25 +157,35 @@ def window_pitch(cp: int) -> int:
     return 16 * (-(-cp // 16) | 1) if cp >= 16 else cp
 
 
-def resident_smem_bytes(bm: int, bk: int, max_nnz: int, window_bytes: int) -> int:
+def resident_smem_bytes(bm: int, bk: int, max_nnz: int, window_bytes: int,
+                        k_units: Optional[int] = None) -> int:
     """Shared memory a block of the int8 instance's resident path holds:
-    every weight unit of its column (``max_nnz`` live K-tiles, packed 128
-    rows a unit), the K table and the step lists, 16 staging rows of output
-    codes an m16 tile, two windows of ``window_bytes`` (window pixels times
-    :func:`window_pitch`), and the static epilogue rows."""
+    every weight unit of its column, the K table and the step lists, 16
+    staging rows of output codes an m16 tile, two windows of
+    ``window_bytes`` (window pixels times :func:`window_pitch`), and the
+    static epilogue rows. The units are ``max_nnz`` live K-tiles packed 128
+    rows a unit, or on compacted operands the ``k_units`` units of the
+    widest column, with a window offset for each of their rows (and no step
+    lists: compacted launches skip no step)."""
     bk16 = _ceil_to(bk, 16)
-    upt = -(-bk16 // 128)                   # units per K-tile
-    tpu = 128 // bk16 if upt == 1 else 1    # K-tiles per unit
-    units = max_nnz * upt if upt > 1 else -(-max_nnz // tpu)
     mt = 1 if bm <= 16 else 2 if bm <= 32 else 4 if bm <= 64 else 8
-    return (units * _UNIT_BYTES + _ceil_to(bk16 * 4, 16)
-            + _ceil_to(bk16 // 16 * 4, 16) + 2 * _ceil_to(max_nnz * 4, 16)
-            + _ceil_to(units * 4, 16) + mt * 16 * (KERNEL_MAX_BN + 16)
+    if k_units is not None:
+        units = k_units
+        tables = _ceil_to(units * _UNIT_ROWS * 4, 16)
+    else:
+        upt = -(-bk16 // 128)                   # units per K-tile
+        tpu = 128 // bk16 if upt == 1 else 1    # K-tiles per unit
+        units = max_nnz * upt if upt > 1 else -(-max_nnz // tpu)
+        tables = (_ceil_to(bk16 * 4, 16) + _ceil_to(bk16 // 16 * 4, 16)
+                  + 2 * _ceil_to(max_nnz * 4, 16))
+    return (units * _UNIT_BYTES + tables + _ceil_to(units * 4, 16)
+            + mt * 16 * (KERNEL_MAX_BN + 16)
             + _WINDOW_RING * _ceil_to(window_bytes, 16) + _IMMA_STATIC_BYTES)
 
 
 def takes_resident_path(n_blocks: int, bm: int, bk: int, max_nnz: int,
-                        window_bytes: int, n_sm: int) -> bool:
+                        window_bytes: int, n_sm: int,
+                        k_units: Optional[int] = None) -> bool:
     """Whether a launch of the int8 instance over ``n_blocks`` M-blocks
     takes the resident path on a card of ``n_sm`` SMs: weight-stationary
     blocks, as many as the card holds at once, each converting its column's
@@ -152,13 +193,113 @@ def takes_resident_path(n_blocks: int, bm: int, bk: int, max_nnz: int,
     the window ring and the staging fit a block's shared memory and each
     such block (at most two an SM) walks at least two M-blocks; elsewhere
     (batch-1 serving, windows or columns too large) every (M-block, column)
-    gets a block of its own. The launcher checks the choice against the
-    same rule and refuses a launch where they differ."""
-    need = resident_smem_bytes(bm, bk, max_nnz, window_bytes)
+    gets a block of its own. ``k_units``: the launch runs on compacted K
+    operands, whose widest column has that many 128-row units
+    (:class:`CompactK`). The launcher checks the choice against the same
+    rule and refuses a launch where they differ."""
+    need = resident_smem_bytes(bm, bk, max_nnz, window_bytes, k_units)
     if need > CARD_SHARED_BYTES:
         return False
     per_sm = min(2, SM_SHARED_BYTES // (need + _BLOCK_RESERVE_BYTES))
     return n_blocks >= 2 * n_sm * per_sm
+
+
+@functools.lru_cache(maxsize=None)
+def takes_compact_path(rows: int, cols: int, cp: int) -> bool:
+    """Whether a launch of the int8 instance may run on compacted K
+    operands: where one block holds the window of all ``cp`` channels (``rows
+    × cols`` pixels) beside the per-block body's weight ring. A compacted
+    unit mixes K-tiles, so the slow path, which restages one K-tile's
+    channels per step, cannot run it; the resident body holds all channels
+    wherever it is taken, and needs more beside them. The launcher refuses a
+    compacted launch that breaks this rule."""
+    return (_COMPACT_BESIDE_WINDOW_BYTES + _ceil_to(rows * cols * cp, 16)
+            + _IMMA_STATIC_BYTES <= CARD_SHARED_BYTES)
+
+
+class CompactK(NamedTuple):
+    """K2 int8's compacted K operands of one bound conv (:func:`compact_k`):
+    for output column ``j`` its ``rows[j]`` rows, the tap rows of its live
+    K-tiles rounded up to 32, in lanes ``j*bn .. (j+1)*bn`` of ``w``;
+    contiguous, on the packed weight's device. The kernel's wrapper takes
+    them as :func:`compact_k` built them; the plain version checks them."""
+    w: torch.Tensor      # (kpad, n_total) int8; zero past a column's rows
+    tab: torch.Tensor    # (nNb, kpad) int32: (channel << 16) | (dy << 8) | dx; -1 past
+    rows: torch.Tensor   # (nNb,) int32, multiples of 32; kpad = 128 * k_units
+    k_rows: int          # sum of ``rows``: the K rows an M-block multiplies
+
+    @property
+    def k_units(self) -> int:
+        """128-row units of the widest column."""
+        return self.w.shape[0] // _UNIT_ROWS
+
+
+def column_tap_rows(idx, cnt, *, kx: int, ky: int, cin: int, cpk: int) -> np.ndarray:
+    """Per output column, the K rows of its live K-tiles that hold a tap:
+    ``kx·ky`` for each of a tile's channels below ``cin``."""
+    idx, cnt = np.asarray(idx, np.int64), np.asarray(cnt)
+    live = np.arange(idx.shape[1])[None, :] < cnt[:, None]
+    return kx * ky * (np.clip(cin - idx * cpk, 0, cpk) * live).sum(axis=1)
+
+
+def compact_rows(idx, cnt, *, kx: int, ky: int, cin: int, cpk: int, slot: int,
+                 bk: int):
+    """Per output column, the packed K rows that hold a tap of its live
+    K-tiles and each row's table entry: ``(src, tab)``, two ``(nNb, n)``
+    int64 arrays, ``-1`` past a column's :func:`column_tap_rows` rows;
+    tiles in the table's order (``idx[j, :cnt[j]]``), then the tile's
+    channels below ``cin``, then the taps row-major."""
+    idx, cnt = np.asarray(idx, np.int64), np.asarray(cnt)
+    n_cols, nnz = idx.shape
+    tap = np.arange(kx * ky)
+    c = np.arange(cpk)
+    ch = idx[:, :, None] * cpk + c                       # (nNb, nnz, cpk)
+    keep = (np.arange(nnz)[None, :, None] < cnt[:, None, None]) & (ch < cin)
+    k = ((idx[:, :, None] * bk + c * slot)[..., None] + tap).reshape(n_cols, -1)
+    e = (ch[..., None] << 16 | (tap // ky) << 8 | tap % ky).reshape(n_cols, -1)
+    keep = np.repeat(keep.reshape(n_cols, -1), kx * ky, axis=1)
+    pos = np.cumsum(keep, axis=1) - 1                    # the row a kept entry takes
+    width = int(pos[:, -1].max(initial=-1)) + 1 if keep.shape[1] else 0
+    src = np.full((n_cols, width), -1, np.int64)
+    tab = np.full((n_cols, width), -1, np.int64)
+    j, f = np.nonzero(keep)
+    src[j, pos[j, f]], tab[j, pos[j, f]] = k[j, f], e[j, f]
+    return src, tab
+
+
+def compact_k(w: torch.Tensor, idx, cnt, *, kx: int, ky: int, cin: int, cpk: int,
+              slot: int, block: Tuple[int, int]) -> CompactK:
+    """K2 int8's compacted K operands, built once at bind from the packed
+    masked int8 weight ``w`` and the host dispatch table: each column's tap
+    rows (:func:`compact_rows`) gathered from a host copy of ``w`` into a
+    dense weight, zero rows to a multiple of 32 and, across columns, to the
+    widest column's 128-row units, then uploaded once. The rows dropped are
+    the packed layout's zero padding, so the products are the padded
+    tiles' sums."""
+    bk, bn = block
+    if cin >= 1 << 15 or kx > 255 or ky > 255:
+        raise ValueError(f"compacted K tables hold channels < 32768 and taps < 256, "
+                         f"got cin={cin}, kernel {kx}x{ky}")
+    n_cols = w.shape[1] // bn
+    if not (w.dtype == torch.int8 and w.dim() == 2 and w.shape[0] % bk == 0
+            and w.shape[1] % bn == 0 and np.shape(idx)[0] == n_cols):
+        raise ValueError(f"compact_k takes a packed int8 weight on the {block} grid and "
+                         f"its table, got {w.dtype} {tuple(w.shape)} and "
+                         f"{np.shape(idx)[0]} columns")
+    src, tab = compact_rows(idx, cnt, kx=kx, ky=ky, cin=cin, cpk=cpk, slot=slot, bk=bk)
+    rows = (-(-(src >= 0).sum(axis=1) // 32) * 32).astype(np.int32)
+    kpad = max(_UNIT_ROWS, _ceil_to(int(rows.max(initial=0)), _UNIT_ROWS))
+    pad = ((0, 0), (0, kpad - src.shape[1]))
+    # row r of column j's lanes: packed row src[r, j] (-1: zeros)
+    src = np.pad(src, pad, constant_values=-1).T
+    wh = w.detach().cpu().numpy().reshape(w.shape[0], n_cols, bn)
+    wc = wh[src.clip(min=0), np.arange(n_cols)[None, :]]      # (kpad, nNb, bn)
+    wc[src < 0] = 0
+    tab = np.pad(tab, pad, constant_values=-1).astype(np.int32)
+    dev = w.device
+    return CompactK(torch.from_numpy(wc.reshape(kpad, -1)).to(dev),
+                    torch.from_numpy(tab).to(dev), torch.from_numpy(rows).to(dev),
+                    int(rows.sum()))
 
 
 @functools.lru_cache(maxsize=None)
@@ -264,7 +405,7 @@ def crop_output(out2d: torch.Tensor, mb: MBlock, batch: int, ho: int,
 
 
 def _check_operands(xp, w, idx, cnt, kx, ky, stride, mb, block, cpk,
-                    activation_dsb):
+                    activation_dsb, compact=None):
     B, Hp, Wp, Cp = xp.shape
     bk, bn = block
     if not (Cp % cpk == 0 and w.shape[0] % bk == 0 and w.shape[1] % bn == 0):
@@ -275,6 +416,19 @@ def _check_operands(xp, w, idx, cnt, kx, ky, stride, mb, block, cpk,
         raise TypeError(
             "activation_dsb keys the skip on exact int8 zero codes — "
             "quantize the activation (quant=...) to use it")
+    if compact is not None:
+        # the plain version's check; the kernel's wrapper takes compact_k's
+        nNb, kpad = w.shape[1] // bn, compact.w.shape[0]
+        if xp.dtype != torch.int8 or compact.w.dtype != torch.int8 or activation_dsb:
+            raise TypeError("compacted K operands take int8 codes without "
+                            "activation_dsb (its skip is decided per K-tile)")
+        if not (tuple(compact.w.shape) == (kpad, w.shape[1]) and kpad % _UNIT_ROWS == 0
+                and tuple(compact.tab.shape) == (nNb, kpad)
+                and tuple(compact.rows.shape) == (nNb,)):
+            raise ValueError(
+                f"compacted K operands off-grid: w {tuple(compact.w.shape)}, tab "
+                f"{tuple(compact.tab.shape)}, rows {tuple(compact.rows.shape)} for "
+                f"{nNb} columns of {bn} lanes")
     rows, cols = window_shape(mb, kx, ky, stride)
     rb = mb.bpi // mb.spi
     if not ((rb - 1) * mb.block_oh * stride + rows <= Hp
@@ -307,6 +461,7 @@ def implicit_block_sparse_conv_plain(
     relu: bool = False,
     activation_dsb: bool = False,
     count_skips: bool = False,
+    compact: Optional[CompactK] = None,
 ):
     """The plain PyTorch version of :func:`implicit_block_sparse_conv`: per
     live K-tile it slices every M-block's window out of the padded input,
@@ -314,9 +469,11 @@ def implicit_block_sparse_conv_plain(
     multiplies them with the weight tiles of the output columns that visit
     the tile — f32 (int32 for codes) accumulation in ascending tile order,
     all-zero windows masked out under ``activation_dsb``, then the shared
-    epilogue."""
+    epilogue. On ``compact`` operands it gathers, per output column, the
+    patch rows its table lists from the windows of all channels and
+    multiplies them with the column's compacted weight."""
     rows, cols, nNb = _check_operands(xp, w, idx, cnt, kx, ky, stride, mb,
-                                      block, cpk, activation_dsb)
+                                      block, cpk, activation_dsb, compact)
     B = xp.shape[0]
     bk, bn = block
     n_total = w.shape[1]
@@ -331,7 +488,24 @@ def implicit_block_sparse_conv_plain(
     wt = w.reshape(w.shape[0] // bk, bk, nNb, bn)
     origins = [((p // mb.spi) * boh * stride, (p % mb.spi) * bow * stride)
                for p in range(bpi)]
-    for t, js in live_columns_by_tile(idx, cnt).items():
+    if compact is not None:
+        # (B*bpi, rows, cols, Cp): every M-block's window of all channels
+        win = torch.stack([xp[:, r0:r0 + rows, q0:q0 + cols] for r0, q0 in origins],
+                          dim=1).flatten(0, 1)
+        oh = torch.arange(boh, device=xp.device)[:, None, None] * stride
+        ow = torch.arange(bow, device=xp.device)[None, :, None] * stride
+        for j, r in enumerate(compact.rows.tolist()):
+            e = compact.tab[j, :r].to(torch.int64)
+            pad = e < 0
+            e = e.clamp(min=0)
+            # patch row k of output pixel (oh, ow): win[oh*stride + dy_k,
+            # ow*stride + dx_k, channel_k]
+            pt = win[:, oh + (e >> 8 & 0xFF), ow + (e & 0xFF), e >> 16]
+            pt = pt.masked_fill(pad, 0).reshape(n_blocks, boh * bow, r)
+            pt = F.pad(pt, (0, 0, 0, bm - boh * bow))
+            acc[:, :, j, :] = int_matmul_exact(pt, compact.w[:r, j * bn:(j + 1) * bn])
+    by_tile = {} if compact is not None else live_columns_by_tile(idx, cnt)
+    for t, js in by_tile.items():
         xc = xp[..., t * cpk:(t + 1) * cpk]
         # (B, bpi, rows, cols, cpk): the window of every M-block
         win = torch.stack([xc[:, r0:r0 + rows, q0:q0 + cols]
@@ -376,6 +550,7 @@ def implicit_block_sparse_conv(
     relu: bool = False,
     activation_dsb: bool = False,
     count_skips: bool = False,
+    compact: Optional[CompactK] = None,   # int8: the bind's compacted K operands
 ):
     """-> (B*bpi*bm, nNb*bn). M-block ``(b, p)`` starts at row
     ``(b*bpi + p)*bm``; its first ``block_oh*block_ow`` rows are the
@@ -395,6 +570,11 @@ def implicit_block_sparse_conv(
     counter (skipped live steps; total live steps are
     ``B*bpi*cnt.sum()``).
 
+    ``compact`` (:func:`compact_k` of the same ``w`` and table, taken as
+    built): the products run on the compacted K operands, the same codes;
+    on the card only where :func:`takes_compact_path` holds, else it
+    raises.
+
     A CUDA ``xp`` launches the CUDA kernel on the current stream (no
     synchronize) or raises; a CPU ``xp`` runs
     :func:`implicit_block_sparse_conv_plain`."""
@@ -402,12 +582,16 @@ def implicit_block_sparse_conv(
         return implicit_block_sparse_conv_plain(
             xp, w, idx, cnt, bias, scale, out_scale, kx=kx, ky=ky,
             stride=stride, mb=mb, block=block, cpk=cpk, slot=slot, relu=relu,
-            activation_dsb=activation_dsb, count_skips=count_skips)
+            activation_dsb=activation_dsb, count_skips=count_skips,
+            compact=compact)
     rows, cols, nNb = _check_operands(xp, w, idx, cnt, kx, ky, stride, mb,
                                       block, cpk, activation_dsb)
     B, Hp, Wp, Cp = xp.shape
     bk, bn = block
     n_total = w.shape[1]
+    if compact is not None and (activation_dsb or xp.dtype != torch.int8):
+        raise TypeError("compacted K operands take int8 codes without "
+                        "activation_dsb (its skip is decided per K-tile)")
     _, out_dtype = quantized_contract(xp, w, scale, out_scale)
     if xp.dtype not in DTYPE_CODES:
         raise TypeError(f"implicit_block_sparse_conv kernel takes "
@@ -421,7 +605,13 @@ def implicit_block_sparse_conv(
             f"window ({rows}, {cols}, {cpk}) does not fit a thread block's "
             f"{CARD_SHARED_BYTES} bytes of shared memory — use the "
             "materializing path")
+    if compact is not None and not takes_compact_path(rows, cols, Cp):
+        raise ValueError(
+            f"window ({rows}, {cols}, {Cp}) of all channels does not fit a "
+            "block beside the weight ring — compacted K operands need it")
     dev = xp.device
+    if compact is not None:
+        w = compact.w          # the kernel reads the compacted weight alone
     for name, t in (("w", w), ("idx", idx), ("cnt", cnt)):
         if t.device != dev:
             raise ValueError(f"{name} is on {t.device}, xp on {dev}")
@@ -438,19 +628,23 @@ def implicit_block_sparse_conv(
         return (out, skips) if count_skips else out
     resident = xp.dtype == torch.int8 and takes_resident_path(
         n_blocks, mb.bm, bk, idx.shape[1], rows * cols * window_pitch(Cp),
-        _sm_count(dev.index))
+        _sm_count(dev.index), None if compact is None else compact.k_units)
+    ktab, krows = (None, None) if compact is None else (compact.tab, compact.rows)
     lib = _build.load()
     ptr = lambda t: None if t is None else t.data_ptr()
     with torch.cuda.device(dev):
         err = lib.hapm_implicit_block_sparse_conv(
             ptr(xp), ptr(w), ptr(idx), ptr(cnt), ptr(scale), ptr(bias),
-            ptr(out_scale), ptr(out), ptr(skips), B, Hp, Wp, Cp, n_total,
-            idx.shape[1], kx, ky, stride, mb.block_oh, mb.block_ow, mb.spi,
-            mb.bpi, mb.bm, bk, bn, cpk, slot, DTYPE_CODES[xp.dtype],
-            int(relu), int(activation_dsb), int(resident),
+            ptr(out_scale), ptr(out), ptr(skips), ptr(ktab), ptr(krows), B, Hp,
+            Wp, Cp, n_total, idx.shape[1], kx, ky, stride, mb.block_oh,
+            mb.block_ow, mb.spi, mb.bpi, mb.bm, bk, bn, cpk, slot,
+            DTYPE_CODES[xp.dtype], int(relu), int(activation_dsb), int(resident),
+            w.shape[0] if compact is not None else 0,
             torch.cuda.current_stream(dev).cuda_stream)
     _build.check_launch(err, "implicit_block_sparse_conv")
     tracing.count(LAUNCHES)
     if resident:
         tracing.count(RESIDENT)
+    if compact is not None:
+        tracing.count(COMPACT)
     return (out, skips) if count_skips else out

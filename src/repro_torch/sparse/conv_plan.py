@@ -592,7 +592,10 @@ def make_sparse_conv(layout: ConvGemmLayout, group_mask, *, bm="auto",
 
     ``conv.plan`` / ``conv.layout`` / ``conv.group_mask`` /
     ``conv.implicit`` / ``conv.quant`` / ``conv.trainable`` expose the
-    dispatch accounting.
+    dispatch accounting; ``conv.compact`` the compacted K operands of a
+    prebound int8 bind without ``activation_dsb`` (``None`` elsewhere),
+    which K2 runs wherever its window of all channels fits a block (a 1×1
+    conv at stride s: on every s-th input pixel at stride 1).
     """
     from ..kernels import implicit_conv as IC
     from ..kernels import ops
@@ -666,10 +669,8 @@ def make_sparse_conv(layout: ConvGemmLayout, group_mask, *, bm="auto",
     tap_rows_per_block = 0
     if geo is not None:
         kx, ky, cin = layout.spec.shape[:3]
-        cpk = geo["cpk"]
-        tap_rows_per_block = kx * ky * sum(
-            max(0, min(cpk, cin - int(t) * cpk))
-            for j in range(plan.idx.shape[0]) for t in plan.idx[j, :int(plan.cnt[j])])
+        tap_rows_per_block = int(IC.column_tap_rows(plan.idx, plan.cnt, kx=kx, ky=ky,
+                                                    cin=cin, cpk=geo["cpk"]).sum())
     mms: dict = {}        # materializing kernels, keyed by effective bm
 
     def _materializing(bm_eff):
@@ -700,13 +701,21 @@ def make_sparse_conv(layout: ConvGemmLayout, group_mask, *, bm="auto",
         bound_hw = tuple(int(d) for d in weight.shape[:2])
     else:
         w_packed, bound_hw = None, None
+    # K2 int8 on compacted K operands: each column's tap rows, gathered once
+    # here (IC.compact_k); a bind with activation_dsb keeps the padded
+    # tiles, whose skip is decided per K-tile window
+    compact = None
+    if w_packed is not None and quant is not None and use_implicit and not activation_dsb:
+        compact = IC.compact_k(w_packed, plan.idx, plan.cnt, kx=kx, ky=ky, cin=cin,
+                               cpk=geo["cpk"], slot=geo["slot"], block=layout.block)
 
-    def _run(x, wp, kx, ky, stride, padding, count_skips=False):
-        """Forward with an already-packed weight ``wp``: the bound plan's
-        implicit kernel when it fits, else the materializing path. With
-        ``count_skips`` returns ``(y, stats)`` — the kernel-side skip
-        counter summed into ``{"skipped_steps", "live_steps"}``, ``None``
-        off the implicit path."""
+    def _run(x, wp, kx, ky, stride, padding, count_skips=False, compact=None):
+        """Forward with an already-packed weight ``wp`` (and its
+        ``compact`` operands, if bound): the bound plan's implicit kernel
+        when it fits, else the materializing path. With ``count_skips``
+        returns ``(y, stats)`` — the kernel-side skip counter summed into
+        ``{"skipped_steps", "live_steps"}``, ``None`` off the implicit
+        path."""
         B, H, W, C = x.shape
         ho = conv_out_size(H, kx, stride, padding)
         wo = conv_out_size(W, ky, stride, padding)
@@ -718,6 +727,11 @@ def make_sparse_conv(layout: ConvGemmLayout, group_mask, *, bm="auto",
             mbk = IC.choose_m_block(ho, wo, cap=bm_cap)
             if mbk is not None:
                 cpk, slot = geo["cpk"], geo["slot"]
+                if compact is not None and kx == ky == 1 and stride > 1:
+                    # a 1x1 conv at stride s is the stride-1 conv of every
+                    # s-th pixel (no padding either way): a window of all
+                    # channels ~s*s times smaller
+                    x, stride = x[:, ::stride, ::stride], 1
                 rows, cols = IC.window_shape(mbk, kx, ky, stride)
                 # the JAX package's accounting rule (two window buffers)...
                 slab = 2 * rows * cols * cpk * x.element_size()
@@ -725,8 +739,10 @@ def make_sparse_conv(layout: ConvGemmLayout, group_mask, *, bm="auto",
                 if (slab <= IC.SLAB_VMEM_BUDGET
                         and IC.window_fits_card(rows, cols, cpk)):
                     nKb = layout.tiles[0]
-                    xp = IC.pad_input(x, kx, ky, stride, padding, mbk,
-                                      nKb * cpk)
+                    if compact is not None and not IC.takes_compact_path(rows, cols,
+                                                                         nKb * cpk):
+                        compact = None
+                    xp = IC.pad_input(x, kx, ky, stride, padding, mbk, nKb * cpk)
                     t = tables.on(x.device)
                     res = IC.implicit_block_sparse_conv(
                         xp, wp, t["idx"], t["cnt"], t["bias"], t["scale"],
@@ -734,9 +750,10 @@ def make_sparse_conv(layout: ConvGemmLayout, group_mask, *, bm="auto",
                         kx=kx, ky=ky, stride=stride, mb=mbk,
                         block=layout.block, cpk=cpk, slot=slot, relu=relu,
                         activation_dsb=activation_dsb,
-                        count_skips=count_skips)
+                        count_skips=count_skips, compact=compact)
                     out2d, skips = res if count_skips else (res, None)
-                    tracing.count(IC.K_ROWS, B * mbk.bpi * k_rows_per_block)
+                    tracing.count(IC.K_ROWS, B * mbk.bpi * (
+                        k_rows_per_block if compact is None else compact.k_rows))
                     tracing.count(IC.TAP_ROWS, B * mbk.bpi * tap_rows_per_block)
                     o = IC.crop_output(out2d, mbk, B, ho, wo)
                     y = layout.unpack_output(
@@ -820,7 +837,7 @@ def make_sparse_conv(layout: ConvGemmLayout, group_mask, *, bm="auto",
             if w_packed is None:
                 raise ValueError("no weight bound at build time — pass w or "
                                  "rebuild with make_sparse_conv(..., weight=w)")
-            return _run(_ingest(x), w_packed, *bound_hw, stride, padding)
+            return _run(_ingest(x), w_packed, *bound_hw, stride, padding, compact=compact)
         if trainable:
             return ops.KernelVJP.apply(
                 x, w, _train_fns(int(w.shape[0]), int(w.shape[1]), stride,
@@ -839,7 +856,7 @@ def make_sparse_conv(layout: ConvGemmLayout, group_mask, *, bm="auto",
             raise ValueError("no weight bound at build time — "
                              "skip_counts needs a prebound conv")
         return _run(_ingest(x), w_packed, *bound_hw, stride, padding,
-                    count_skips=True)
+                    count_skips=True, compact=compact)
 
     conv.plan = plan
     conv.layout = layout
@@ -850,6 +867,7 @@ def make_sparse_conv(layout: ConvGemmLayout, group_mask, *, bm="auto",
     conv.quant = quant
     conv.out_quant = out_quant
     conv.activation_dsb = activation_dsb
+    conv.compact = compact
     conv.trainable = trainable
     conv.skip_counts = skip_counts
     return conv

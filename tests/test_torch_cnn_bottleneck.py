@@ -11,11 +11,12 @@
   misses, and ``apply`` in f32 equals the reference's f32 forward;
 - the max-pool on codes is pool-then-requantize bit for bit;
 - every conv of ResNet-50 takes K2's implicit path at buckets 1 and 128,
-  13 of them on the resident path at 128 on an H100, and the bound convs
-  count K2's K rows and tap rows.
+  all on compacted K operands and 20 on the resident path at 128 on an
+  H100, and the bound convs count K2's K rows and tap rows.
 
 The ``gpu`` tests run K2 int8 at each distinct ResNet-50 geometry at batch
-128 against the plain version on the card, and a served chunk's launches.
+128 against the plain version on the card, on compacted and padded K
+operands, and a served chunk's launches.
 """
 import sys
 from pathlib import Path
@@ -226,6 +227,13 @@ def _launch(c, batch, group_mask=None):
     return layout, plan, geo, mb, rows, cols
 
 
+def _k_units(layout, plan, geo):
+    """128-row units of the widest column on compacted K operands."""
+    k, _, cin, _ = layout.spec.shape
+    taps = IC.column_tap_rows(plan.idx, plan.cnt, kx=k, ky=k, cin=cin, cpk=geo["cpk"])
+    return int(-(-taps.max() // 128))
+
+
 @pytest.mark.parametrize("i", range(53))
 def test_every_conv_takes_the_implicit_path(i):
     """The bound conv's own per-call test (``make_sparse_conv._run``) holds
@@ -239,25 +247,49 @@ def test_every_conv_takes_the_implicit_path(i):
     assert layout.block[0] <= 128 and plan.idx.shape[1] <= 128
 
 
-def test_thirteen_convs_are_resident_at_batch_128():
+def test_twenty_one_convs_are_resident_at_batch_128():
     """On an H100 at bucket 128, every group live (the most units a column
-    holds): the stem, stage 1's convs of 64 input channels and stage 2's
-    last 1x1s; stages 3 and 4 have too few M-blocks, and the 1x1s of 256
-    or more input channels columns too large to hold."""
-    resident = []
+    holds), on compacted K operands: the stem, stage 1, and stage 2's 1x1s
+    and stage 3's first (their columns of 256 or 512 input channels now 2
+    or 4 units) and stage 2's projection (at stride 1 on every second
+    pixel); stages 3 and 4 have too few M-blocks otherwise, stage 2's 3x3s
+    (9 units) columns too large.
+    On the padded tiles it was 13 of them: the 1x1s of 256 or more input
+    channels had columns too large to hold. The three strided projections
+    run compacted at stride 1 on every second pixel (at stride 2, two of
+    them have windows of all channels no block holds)."""
+    resident, padded_resident, strided = [], [], []
     for c in cnn.network(R50).convs:
         layout, plan, geo, mb, rows, cols = _launch(c, 128)
         cp = layout.tiles[0] * geo["cpk"]
-        if IC.takes_resident_path(128 * mb.bpi, mb.bm, layout.block[0], plan.idx.shape[1],
-                                  rows * cols * IC.window_pitch(cp), H100_SMS):
-            resident.append("/".join(c.path[:-1]))
+        args = (128 * mb.bpi, mb.bm, layout.block[0], plan.idx.shape[1],
+                rows * cols * IC.window_pitch(cp), H100_SMS)
+        name = "/".join(c.path[:-1])
+        compacted = args
+        if c.k == 1 and c.stride > 1:
+            rows, cols = IC.window_shape(mb, 1, 1, 1)
+            compacted = args[:4] + (rows * cols * IC.window_pitch(cp), H100_SMS)
+            strided.append(name)
+        assert IC.takes_compact_path(rows, cols, cp)
+        if IC.takes_resident_path(*compacted, k_units=_k_units(layout, plan, geo)):
+            resident.append(name)
+        if IC.takes_resident_path(*args):
+            padded_resident.append(name)
     assert resident == ["conv0", "s0b0/conv1", "s0b0/conv2", "s0b0/conv3", "s0b0/proj",
-                        "s0b1/conv2", "s0b1/conv3", "s0b2/conv2", "s0b2/conv3",
-                        "s1b0/conv3", "s1b1/conv3", "s1b2/conv3", "s1b3/conv3"]
+                        "s0b1/conv1", "s0b1/conv2", "s0b1/conv3", "s0b2/conv1", "s0b2/conv2",
+                        "s0b2/conv3", "s1b0/conv1", "s1b0/conv3", "s1b0/proj", "s1b1/conv1",
+                        "s1b1/conv3", "s1b2/conv1", "s1b2/conv3", "s1b3/conv1", "s1b3/conv3", "s2b0/conv1"]
+    assert padded_resident == ["conv0", "s0b0/conv1", "s0b0/conv2", "s0b0/conv3", "s0b0/proj",
+                               "s0b1/conv2", "s0b1/conv3", "s0b2/conv2", "s0b2/conv3",
+                               "s1b0/conv3", "s1b1/conv3", "s1b2/conv3", "s1b3/conv3"]
+    assert strided == ["s1b0/proj", "s2b0/proj", "s3b0/proj"]
 
 
 @pytest.mark.parametrize("k,cin,live", [(7, 3, None), (1, 64, None), (3, 20, "half")])
 def test_bound_conv_counts_k_rows_and_tap_rows(k, cin, live):
+    """A bound int8 conv runs on compacted K operands: it counts, per
+    M-block, each column's tap rows rounded up to 32 as K rows; the tap
+    rows are those of the padded tiles it no longer multiplies."""
     rs = np.random.RandomState(k + cin)
     layout = TP.conv_gemm_layout(TG.fpga_conv_groups((k, k, cin, 24), 12), packed=True)
     gm = np.ones(layout.spec.num_groups, np.float32)
@@ -271,11 +303,15 @@ def test_bound_conv_counts_k_rows_and_tap_rows(k, cin, live):
     conv(x, stride=2)
     mb = IC.choose_m_block(7, 7)
     geo, plan = layout.implicit_geometry(), conv.plan
-    live_tiles = [int(t) for j in range(plan.idx.shape[0]) for t in plan.idx[j, :plan.cnt[j]]]
-    taps = sum(min(geo["cpk"], cin - t * geo["cpk"]) for t in live_tiles) * k * k
-    assert tracing.counter(IC.K_ROWS) - before[IC.K_ROWS] == 2 * mb.bpi * len(live_tiles) * 128
-    assert tracing.counter(IC.TAP_ROWS) - before[IC.TAP_ROWS] == 2 * mb.bpi * taps
-    assert taps < len(live_tiles) * 128
+    cols = [[int(t) for t in plan.idx[j, :plan.cnt[j]]] for j in range(plan.idx.shape[0])]
+    col_taps = [sum(min(geo["cpk"], cin - t * geo["cpk"]) for t in ts) * k * k for ts in cols]
+    assert conv.compact is not None
+    assert conv.compact.rows.tolist() == [-(-n // 32) * 32 for n in col_taps]
+    k_rows = tracing.counter(IC.K_ROWS) - before[IC.K_ROWS]
+    assert k_rows == 2 * mb.bpi * sum(-(-n // 32) * 32 for n in col_taps)
+    assert tracing.counter(IC.TAP_ROWS) - before[IC.TAP_ROWS] == 2 * mb.bpi * sum(col_taps)
+    assert sum(col_taps) < sum(len(ts) for ts in cols) * 128
+    assert sum(col_taps) > 0.8 * k_rows / (2 * mb.bpi)
 
 
 def _r50_geometries():
@@ -287,11 +323,13 @@ def _r50_geometries():
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("operands", ["compact", "padded"])
 @pytest.mark.parametrize("geom", _r50_geometries(), ids=lambda g: "x".join(map(str, g)))
-def test_k2_int8_at_resnet50_geometries_on_the_card(geom):
-    """K2 int8, streamed, at batch 128 and half the groups live: bit-equal to
-    the plain version on the card, one launch counted, the path the rule
-    gives."""
+def test_k2_int8_at_resnet50_geometries_on_the_card(geom, operands):
+    """K2 int8, streamed, at batch 128 and half the groups live, on
+    compacted K operands where the rule takes them and on the padded tiles:
+    bit-equal to the plain version on the card, one launch counted, the path
+    the rule gives."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernel has no CPU mode")
     dev = torch.device("cuda", 0)
@@ -317,18 +355,39 @@ def test_k2_int8_at_resnet50_geometries_on_the_card(geom):
              layout.pack_bias(torch.full((cout,), 16.0, device=dev)))
     kw = dict(kx=k, ky=k, stride=stride, mb=mb, block=layout.block, cpk=geo["cpk"],
               slot=geo["slot"], relu=True)
+    kg = dict(cpk=geo["cpk"], slot=geo["slot"], block=layout.block)
     rows, cols = IC.window_shape(mb, k, k, stride)
+    ck, xk, kk = None, xp, kw
+    if operands == "compact":
+        ck = IC.compact_k(wp, plan.idx, plan.cnt, kx=k, ky=k, cin=cin, **kg)
+        if k == 1 and stride > 1:
+            # a strided projection runs as the bind runs it, at stride 1 on
+            # every second pixel; at stride 2 the two wide ones are refused
+            if not IC.takes_compact_path(rows, cols, xp.shape[3]):
+                assert (k, stride, cin) in [(1, 2, 512), (1, 2, 1024)]
+                with pytest.raises(ValueError, match="compacted K operands need it"):
+                    IC.implicit_block_sparse_conv(xp, wp, idx, cnt, *rows_, **kw, compact=ck)
+            xk = IC.pad_input(q.act_codes(x)[:, ::2, ::2], 1, 1, 1, "SAME", mb,
+                              xp.shape[3]).contiguous()
+            kk = {**kw, "stride": 1}
+            rows, cols = IC.window_shape(mb, 1, 1, 1)
+        assert IC.takes_compact_path(rows, cols, xp.shape[3])
     resident = IC.takes_resident_path(
         128 * mb.bpi, mb.bm, layout.block[0], plan.idx.shape[1],
         rows * cols * IC.window_pitch(xp.shape[3]),
-        torch.cuda.get_device_properties(dev).multi_processor_count)
-    before, before_res = IC.launch_count(), IC.resident_launch_count()
-    got = IC.implicit_block_sparse_conv(xp, wp, idx, cnt, *rows_, **kw)
+        torch.cuda.get_device_properties(dev).multi_processor_count,
+        None if ck is None else ck.k_units)
+    before = (IC.launch_count(), IC.resident_launch_count(), IC.compact_launch_count())
+    got = IC.implicit_block_sparse_conv(xk, wp, idx, cnt, *rows_, **kk, compact=ck)
     torch.cuda.synchronize()
-    assert IC.launch_count() == before + 1
-    assert IC.resident_launch_count() == before_res + int(resident)
+    assert IC.launch_count() == before[0] + 1
+    assert IC.resident_launch_count() == before[1] + int(resident)
+    assert IC.compact_launch_count() == before[2] + int(ck is not None)
     want = IC.implicit_block_sparse_conv_plain(xp, wp, idx, cnt, *rows_, **kw)
     assert got.dtype == torch.int8 and torch.equal(got, want)
+    if ck is not None:
+        assert torch.equal(IC.implicit_block_sparse_conv_plain(xk, wp, idx, cnt, *rows_, **kk,
+                                                               compact=ck), want)
 
 
 @pytest.mark.gpu

@@ -538,7 +538,7 @@ def _imma_operands(case, packed, mode, dev):
     scale = layout.pack_bias(q.dequant_row(cout, dev))
     bias = layout.pack_bias(torch.from_numpy(rs.randn(cout).astype(np.float32)).to(dev))
     out_scale = (layout.pack_bias(torch.full((cout,), 16.0, device=dev))
-                 if mode == "streamed_dsb" else None)
+                 if mode.startswith("streamed") else None)
     from repro_torch.kernels.conv_lowering import conv_out_size
     ho, wo = conv_out_size(h, k, stride, "SAME"), conv_out_size(w_, k, stride, "SAME")
     mb = IC.choose_m_block(ho, wo, cap=cap)
@@ -549,42 +549,54 @@ def _imma_operands(case, packed, mode, dev):
     idx, cnt = (torch.from_numpy(a).to(dev) for a in (plan.idx, plan.cnt))
     dsb = mode == "streamed_dsb"
     kw = dict(kx=k, ky=k, stride=stride, mb=mb, block=layout.block, cpk=geo["cpk"],
-              slot=geo["slot"], relu=True, activation_dsb=dsb, count_skips=dsb)
+              slot=geo["slot"], relu=True, activation_dsb=dsb, count_skips=True)
+    if mode == "streamed_compact":
+        kw["compact"] = IC.compact_k(wp, plan.idx, plan.cnt, kx=k, ky=k, cin=cin,
+                                     cpk=geo["cpk"], slot=geo["slot"], block=layout.block)
     return (xp, wp, idx, cnt, bias, scale, out_scale), kw
 
 
 @pytest.mark.parametrize("case", IMMA_CASES, ids=lambda c: "x".join(map(str, c)))
 @pytest.mark.parametrize("packed", [False, True])
-@pytest.mark.parametrize("mode", ["int8", "streamed_dsb"])
+@pytest.mark.parametrize("mode", ["int8", "streamed_dsb", "streamed_compact"])
 def test_implicit_conv_int8_tensor_core_instance(dev, case, packed, mode):
     """The int8 instance (tensor-core products) bit-equal to the plain
-    version, outputs and skip counters, two launches bit-identical, one
-    launch counted per call; launches of 1024 M-blocks or more take the
-    resident path and those of 256 or fewer the per-block path, as the rule
-    says."""
+    version on the padded tiles, outputs and skip counters, two launches
+    bit-identical, one launch counted per call; launches of 1024 M-blocks
+    or more take the resident path and those of 256 or fewer the per-block
+    path, as the rule says (on compacted K operands with their units, which
+    the launcher checks; a window of all channels no block holds beside the
+    weight ring refuses them)."""
     args, kw = _imma_operands(case, packed, mode, dev)
     xp, mb = args[0], kw["mb"]
     rows, cols = IC.window_shape(mb, kw["kx"], kw["ky"], kw["stride"])
+    ck = kw.get("compact")
+    if ck is not None and not IC.takes_compact_path(rows, cols, xp.shape[3]):
+        assert case[:4] == (3, 40, 8, 7)
+        with pytest.raises(ValueError, match="compacted K operands need it"):
+            IC.implicit_block_sparse_conv(*args, **kw)
+        return
     resident = IC.takes_resident_path(
         xp.shape[0] * mb.bpi, mb.bm, kw["block"][0], args[2].shape[1],
         rows * cols * IC.window_pitch(xp.shape[3]),
-        torch.cuda.get_device_properties(dev).multi_processor_count)
+        torch.cuda.get_device_properties(dev).multi_processor_count,
+        None if ck is None else ck.k_units)
     if xp.shape[0] * mb.bpi >= 1024:
         assert resident
     elif xp.shape[0] * mb.bpi <= 256:
         assert not resident
-    before, before_res = IC.launch_count(), IC.resident_launch_count()
+    before = (IC.launch_count(), IC.resident_launch_count(), IC.compact_launch_count())
     got = IC.implicit_block_sparse_conv(*args, **kw)
     again = IC.implicit_block_sparse_conv(*args, **kw)
     torch.cuda.synchronize()
-    assert IC.launch_count() == before + 2
-    assert IC.resident_launch_count() == before_res + 2 * resident
-    want = IC.implicit_block_sparse_conv_plain(*args, **kw)
-    if kw["count_skips"]:
-        assert torch.equal(got[1], want[1]) and torch.equal(again[1], got[1])
-        if case[-1] == "zero_windows":
-            assert int(got[1].sum()) > 0
-        got, again, want = got[0], again[0], want[0]
+    assert IC.launch_count() == before[0] + 2
+    assert IC.resident_launch_count() == before[1] + 2 * resident
+    assert IC.compact_launch_count() == before[2] + 2 * (ck is not None)
+    want = IC.implicit_block_sparse_conv_plain(*args, **{**kw, "compact": None})
+    assert torch.equal(got[1], want[1]) and torch.equal(again[1], got[1])
+    if case[-1] == "zero_windows" and kw["activation_dsb"]:
+        assert int(got[1].sum()) > 0
+    got, again, want = got[0], again[0], want[0]
     assert torch.equal(got, again)
     _check(got, want, 0)
     if not packed:

@@ -14,13 +14,20 @@ on the card. Here, on an H100's 132 SMs:
 - batch 1, a window too large to hold twice with all its channels, and
   a column with more weight units than a block holds take the per-block path;
 - the rule's shared-memory count fits the card where it says resident;
-- the resident window's pixels are padded to an odd number of 16-byte groups.
+- the resident window's pixels are padded to an odd number of 16-byte groups;
+- on compacted K operands (each column's tap rows in 128-row units) the rule
+  counts the widest column's units and their offset table: the served
+  convs stay resident on them, a column of many K-tiles that no block held
+  padded now fits, and the count never exceeds the padded tiles' where the
+  units are as many; a window of all channels too large for a block beside
+  the weight ring keeps the padded tiles.
 """
 import json
 from pathlib import Path
 
 import numpy as np
 import pytest
+import torch
 
 from repro_torch.core import groups as TG
 from repro_torch.kernels import implicit_conv as IC
@@ -64,6 +71,18 @@ def _launch(k, cin, cout, stride, h, batch, n_cu=12, packed=True):
     rows, cols = IC.window_shape(mb, k, k, stride)
     window = rows * cols * IC.window_pitch(layout.tiles[0] * geo["cpk"])
     return (batch * mb.bpi, mb.bm, layout.block[0], plan.idx.shape[1], window)
+
+
+def _k_units(k, cin, cout, n_cu=12, packed=True):
+    """128-row units of the widest column on compacted K operands, every
+    group live."""
+    layout = TP.conv_gemm_layout(TG.fpga_conv_groups((k, k, cin, cout), n_cu), packed=packed)
+    plan = layout.plan(np.ones(layout.spec.num_groups, np.float32))
+    geo = layout.implicit_geometry()
+    ck = IC.compact_k(torch.zeros(layout.k_packed, layout.n_packed, dtype=torch.int8), plan.idx,
+                      plan.cnt, kx=k, ky=k, cin=cin, cpk=geo["cpk"], slot=geo["slot"],
+                      block=layout.block)
+    return ck.k_units
 
 
 SERVED = [(path.stem, conv) for path in CONFIGS
@@ -127,3 +146,59 @@ def test_each_resident_block_walks_two_m_blocks(units, bm):
                                       (64, 80), (128, 144)])
 def test_window_pixels_pad_to_an_odd_number_of_16_byte_groups(cp, pitch):
     assert IC.window_pitch(cp) == pitch
+
+
+@pytest.mark.parametrize("config,conv", SERVED, ids=[f"{c}-{i % 21}" for i, (c, _) in
+                                                     enumerate(SERVED)])
+def test_served_convs_on_compacted_operands_take_the_resident_path(config, conv):
+    """The served convs at batch 2048 on compacted K operands: resident, in
+    fewer or as many units as on the padded tiles, and within the card."""
+    spec = json.loads(next(p for p in CONFIGS if p.stem == config).read_text())["exec_spec"]
+    launch = _launch(*conv, 2048, n_cu=spec["n_cu"], packed=spec["packed"])
+    units = _k_units(*conv[:3], n_cu=spec["n_cu"], packed=spec["packed"])
+    assert units <= launch[3]
+    assert IC.takes_resident_path(*launch, H100_SMS, k_units=units)
+    assert IC.resident_smem_bytes(*launch[1:], k_units=units) <= IC.CARD_SHARED_BYTES
+    k, cin, cout, stride, h = conv
+    mb = IC.choose_m_block(*(conv_out_size(h, k, stride, "SAME"),) * 2)
+    cpk = TP.conv_gemm_layout(TG.fpga_conv_groups((k, k, cin, cout), spec["n_cu"]),
+                              packed=spec["packed"]).implicit_geometry()["cpk"]
+    assert IC.takes_compact_path(*IC.window_shape(mb, k, k, stride), -(-cin // cpk) * cpk)
+
+
+def test_a_column_too_large_to_hold_padded_fits_compacted():
+    # 256 input channels packed (3x3): 32 padded units of 17 KB; compacted,
+    # 2304 tap rows, 18 units: still too many. 1x1, 256 channels: 16 padded
+    # units, 2 compacted, which a block holds.
+    launch = _launch(3, 256, 64, 1, 8, 4096)
+    assert _k_units(3, 256, 64) == 18
+    assert not IC.takes_resident_path(*launch, H100_SMS, k_units=18)
+    launch = _launch(1, 256, 64, 1, 56, 128)
+    assert launch[3] == 16 and _k_units(1, 256, 64) == 2
+    assert not IC.takes_resident_path(*launch, H100_SMS)
+    assert IC.takes_resident_path(*launch, H100_SMS, k_units=2)
+
+
+@pytest.mark.parametrize("units,bm", [(1, 128), (2, 128), (8, 64)])
+def test_compacted_units_count_their_offset_table(units, bm):
+    """A compacted unit holds 128 window offsets beside its 17 KB: the count
+    is the padded count's for the same units with 128 offsets a unit in
+    place of the K-tile's table and the step lists."""
+    window = 10 * 680
+    padded = IC.resident_smem_bytes(bm, 128, units, window)
+    compact = IC.resident_smem_bytes(bm, 128, units, window, k_units=units)
+    assert compact - padded == units * 512 - (512 + 32 + 2 * (-(-units * 4 // 16) * 16))
+    per_sm = min(2, IC.SM_SHARED_BYTES // (compact + 1024))
+    edge = 2 * H100_SMS * per_sm
+    assert IC.takes_resident_path(edge, bm, 128, 99, window, H100_SMS, k_units=units)
+    assert not IC.takes_resident_path(edge - 1, bm, 128, 99, window, H100_SMS, k_units=units)
+
+
+def test_a_window_too_large_beside_the_ring_keeps_the_padded_tiles():
+    # the compacted per-block body holds two packed units, a raw ring of
+    # three units with their table entries and two units' offsets (86.5 KB)
+    # beside its window of all channels
+    room = IC.CARD_SHARED_BYTES - IC._COMPACT_BESIDE_WINDOW_BYTES - IC._IMMA_STATIC_BYTES
+    assert IC._COMPACT_BESIDE_WINDOW_BYTES == 86528
+    assert IC.takes_compact_path(1, room // 64, 64)
+    assert not IC.takes_compact_path(1, room // 64 + 1, 64)
