@@ -203,7 +203,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from repro_torch import kernels
+from repro_torch import kernels, tracing
 from repro_torch.accel import BOARDS, simulate
 from repro_torch.core import (HAPMConfig, apply_masks, full_masks, global_sparsity,
                               hapm_element_masks, hapm_epoch_update, hapm_init,
@@ -343,8 +343,10 @@ def tensor_core_instances(require: bool = True) -> dict:
     from ``cuobjdump -sass`` of the
     built library, and "k2_int8_sass": {instance: sha1 of its instructions}
     (addresses and encodings dropped), so that two builds of K2 can be told
-    equal. With ``require`` it raises unless each of the four int8 instances
-    of K2 (one per m16 tiles per block) holds integer tensor-core (IMMA)
+    equal. With ``require`` it raises unless each of K2's int8 instances (at
+    least four; the build holds twelve: the per-block body on padded and on
+    compacted K operands and the resident body on compacted ones, each for
+    1, 2, 4 and 8 m16 tiles a block) holds integer tensor-core (IMMA)
     instructions, each of its four f32 and four bf16 instances holds float
     ones (HMMA), each of K3's and of K1's four f32 and four bf16 instances
     (16-byte or element copies, narrow or wide lanes) holds HMMA, and each of
@@ -415,7 +417,7 @@ def resource_usage(name: str) -> dict:
 def path_counts() -> dict:
     """The four kernels' launches since the last reset (``kernels.launch_counts``)
     and, beside them, K2's launches on compacted K operands (``k2_compact``)."""
-    return {**kernels.launch_counts(), "k2_compact": IC.compact_launch_count()}
+    return {**kernels.launch_counts(), "k2_compact": tracing.counter(IC.COMPACT)}
 
 
 def sync(device) -> None:

@@ -34,17 +34,18 @@
 // body at batch 2048, a block spent 30-38 % of its time in its prologue
 // (tables, epilogue rows, window) and in copying and transposing its
 // column's weight units from L2, 34-60 % in the products and 6-16 % in the
-// flush, whose 2-byte stores write 8 bytes of each 32-byte sector. So a
-// launch takes one of two bodies, chosen from its geometry (`resident_path`,
-// mirrored on the host by `takes_resident_path` in kernels/implicit_conv.py;
-// the launcher refuses a launch whose choice differs):
-//   * resident (kResident): as many blocks as the card holds at once, each
-//     holding every live weight unit of its column, copied and transposed
-//     once into its own packed buffer (17 KB a unit: 35 KB on stage 1, 139
-//     KB on the 64-channel convs), then walking M-blocks c, c + G, ... Each
-//     M-block's window (all channels, pixels padded to an odd number of
-//     16-byte groups) is requested one M-block ahead into a ring of two; its
-//     activation skips are decided from it as below; a whole 128-row unit
+// flush, whose 2-byte stores write 8 bytes of each 32-byte sector. So the
+// instance has two bodies. The host chooses between them from the launch's
+// geometry (`takes_resident_path` in kernels/implicit_conv.py, the rule's
+// only copy); the launcher refuses a resident launch on padded operands or
+// one whose shared memory a block cannot hold:
+//   * resident (kResident, compacted K operands only): as many blocks as the
+//     card holds at once, each holding every weight unit of its column,
+//     copied and transposed once into its own packed buffer (17 KB a unit),
+//     with the window offset of each of their rows formed once from the
+//     table, then walking M-blocks c, c + G, ... Each M-block's window (all
+//     channels, pixels padded to an odd number of 16-byte groups) is
+//     requested one M-block ahead into a ring of two; a whole 128-row unit
 //     runs its four K steps as straight-line code; its codes go through
 //     staging rows in shared memory (the zero-accumulator codes written
 //     once, only the live n8 tiles rewritten per M-block) and leave in
@@ -52,15 +53,17 @@
 //     take alternate n8 tiles, so that a column's live tiles at the front
 //     split evenly. Taken where the column's units, the ring and the staging
 //     fit a block and each block walks at least two M-blocks: every conv of
-//     the served net at batch 2048. What is left of its time is the products
-//     (85-95 % of an M-block by the same stamps): the A-fragment gathers, a
-//     byte load per code, bound by latency at 8-16 warps an SM, not by the
-//     banks (a window laid out so that every load takes one wavefront ran
-//     no faster).
-//   * per block: one block per (M-block, N-tile), the column's units
-//     streamed through a raw ring for that M-block alone, as below: batch-1
-//     and small-batch serving, pricing, windows or columns too large to hold.
-// Compacted K (kCompact, every int8 launch bound without activation DSB
+//     the served CIFAR net at batch 2048. What is left of its time is the
+//     products (85-95 % of an M-block by the same stamps): the A-fragment
+//     gathers, a byte load per code, bound by latency at 8-16 warps an SM,
+//     not by the banks (a window laid out so that every load takes one
+//     wavefront ran no faster).
+//   * per block (padded or compacted K operands): one block per (M-block,
+//     N-tile), the column's units streamed through a raw ring for that
+//     M-block alone, as below: batch-1 and small-batch serving, pricing,
+//     windows or columns too large to hold, and every launch on padded
+//     operands (activation DSB, calls that are not prebound).
+// Compacted K (kCompact, every prebound int8 launch without activation DSB
 // whose window of all channels the per-block body holds): a packed K-tile
 // gives each channel ceil8(kx*ky) rows, so a 1x1 tile holds one tap in
 // eight rows and a 3x3 tile nine in sixteen, and no K step of either is
@@ -80,10 +83,8 @@
 // keeps are unchanged, int32 sums are exact in any order, and the codes are
 // those of the padded tiles. Binds with activation DSB keep the padded
 // tiles: their skip is decided per K-tile window. So does the slow path
-// below (a compacted unit mixes K-tiles); the resident rule counts the
-// widest column's compacted units and their offsets.
-// The per-block body, whose products, skips and epilogue the resident one
-// shares:
+// below (a compacted unit mixes K-tiles).
+// The per-block body, whose products and epilogue the resident one shares:
 //   * products on the tensor cores: mma.sync m16n8k32 (s8 x s8 -> s32) per
 //     32-deep K-step, m16n8k16 for a 16-deep one (bk = 16, the unpacked 3x3
 //     layout; bk = 8 is padded to 16). int32 sums are exact in any order, so
@@ -858,8 +859,6 @@ __device__ __forceinline__ void imma_per_block(const int8_t* __restrict__ xp,
 // ---------------------------------------------------------------------------
 
 constexpr int kWinRing = 2;             // M-block windows: the one in use, the next in flight
-constexpr int kSmBytes = 233472;        // shared memory of one SM; a block reserves 1 KB more
-constexpr int kResidentMinWalk = 2;     // M-blocks a resident block walks at least
 // bytes per staged row of output codes: 16 beside the 128 lanes, so that
 // the fragments' 2-byte stores of rows gq = 0..7 fall in distinct banks
 constexpr int kStagePitch = kMaxBn + 16;
@@ -870,34 +869,22 @@ __host__ __device__ inline int imma_mt(int bm) {
 }
 
 // Byte offsets of the resident kernel's dynamic shared memory: a packed
-// buffer for each weight unit of the column (max_nnz tiles), the K index ->
-// window offset table, the 16-row liveness flags, the column's live tiles,
-// each live step's nonzero flag for the M-block at hand, the units' n8
-// masks, the staging rows of output codes (16 an m16 tile) and the ring of
-// M-block windows (all Cp channels). On compacted K operands: the widest
-// column's kpad / 128 units, a window offset for each of their rows, and
-// no liveness flags or step lists.
+// buffer for each of the widest column's kpad / 128 compacted units, a
+// window offset for each of their rows, the units' n8 masks, the staging
+// rows of output codes (16 an m16 tile) and the ring of M-block windows
+// (all Cp channels). `resident_smem_bytes` in kernels/implicit_conv.py
+// counts the same.
 struct ResSmem {
   int units;
-  size_t woff, live16, lst, nz, n8, stg, win, wstride, total;
+  size_t woff, n8, stg, win, wstride, total;
 };
 
 __host__ __device__ inline ResSmem resident_smem(const ConvGeom& g) {
-  const size_t bk16 = (g.bk + 15) / 16 * 16;
-  const UnitShape us = unit_shape(g, 1);
-  const size_t lists = g.compact ? 0 : align16(static_cast<size_t>(g.max_nnz) * 4);
   ResSmem s;
-  s.units = g.compact ? g.kpad / kUnitK
-            : us.upt > 1 ? g.max_nnz * us.upt : (g.max_nnz + us.tpu - 1) / us.tpu;
+  s.units = g.kpad / kUnitK;
   size_t o = static_cast<size_t>(s.units) * kBufWords * 4;
   s.woff = o;
-  o += g.compact ? align16(static_cast<size_t>(g.kpad) * 4) : align16(bk16 * 4);
-  s.live16 = o;
-  o += g.compact ? 0 : align16(bk16 / 16 * 4);
-  s.lst = o;
-  o += lists;
-  s.nz = o;
-  o += lists;
+  o += align16(static_cast<size_t>(g.kpad) * 4);
   s.n8 = o;
   o += align16(static_cast<size_t>(s.units) * 4);
   s.stg = o;
@@ -907,19 +894,6 @@ __host__ __device__ inline ResSmem resident_smem(const ConvGeom& g) {
   o += kWinRing * s.wstride;
   s.total = o;
   return s;
-}
-
-// The path rule (mirrored by `takes_resident_path` in
-// kernels/implicit_conv.py, which chooses; the launcher refuses a launch
-// whose choice differs): resident where the column's units, the window ring
-// and the staging fit a block's shared memory, and each of the blocks that
-// the card holds at once (at most two an SM) walks at least two M-blocks.
-inline bool resident_path(const ConvGeom& g, int n_mb, int n_sm) {
-  const size_t need = resident_smem(g).total + kImmaStaticBytes;
-  if (need > static_cast<size_t>(kMaxSharedBytes)) return false;
-  const int fit = kSmBytes / static_cast<int>(need + 1024);
-  const int per_sm = fit < 2 ? fit : 2;
-  return n_mb >= kResidentMinWalk * n_sm * per_sm;
 }
 
 // Transpose a weight unit that landed raw at the start of its own packed
@@ -949,21 +923,20 @@ __device__ __forceinline__ void convert_in_place(int* buf, unsigned* n8_mask, in
   }
 }
 
-// The resident body: block c of column j holds every live weight unit of
-// the column, converted once, and walks M-blocks c, c + G, c + 2G, ... (G =
-// gridDim.x). Each M-block's window (all channels) is requested one
-// M-block ahead into a ring of two; its skips are decided from it, its
-// products run against the resident units, and its int8 codes leave
-// through the staging rows of each m16 tile in 16-byte stores (f32
-// outputs, and rows that do not allow them, through the fragments). The
-// WN warps of an m16 tile take every WN-th n8 tile, so that the live tiles
-// at the front of a column (9 of 16 on a 64-channel conv) split evenly. On
-// compacted K operands (kCompact) the column's krows[j] rows are held in
-// 128-row units, their window offsets formed once from its table.
-template <int MT, bool kCompact>
+// The resident body, on compacted K operands: block c of column j holds the
+// column's krows[j] rows in 128-row units, converted once, with their window
+// offsets formed once from its table, and walks M-blocks c, c + G, c + 2G,
+// ... (G = gridDim.x). Each M-block's window (all channels) is requested one
+// M-block ahead into a ring of two; its products run against the resident
+// units, and its int8 codes leave through the staging rows of each m16 tile
+// in 16-byte stores (f32 outputs, and rows that do not allow them, through
+// the fragments). The WN warps of an m16 tile take every WN-th n8 tile, so
+// that the live tiles at the front of a column (9 of 16 on a 64-channel
+// conv) split evenly. Compacted launches skip no step: where `skips` is
+// given, each (M-block, column) counts zero.
+template <int MT>
 __device__ __forceinline__ void imma_resident(const int8_t* __restrict__ xp,
                                               const int8_t* __restrict__ w,
-                                              const int* __restrict__ idx,
                                               const int* __restrict__ cnt, const Epilogue& ep,
                                               void* __restrict__ out, int out_int8,
                                               int* __restrict__ skips,
@@ -976,12 +949,8 @@ __device__ __forceinline__ void imma_resident(const int8_t* __restrict__ xp,
   __shared__ __align__(16) float s_z[kMaxBn];    // epilogue of a zero accumulator
   __shared__ __align__(16) int8_t s_z8[kMaxBn];  // the same as int8 codes
   const ResSmem L = resident_smem(g);
-  const UnitShape us = unit_shape(g, 1);
   int* bufs = reinterpret_cast<int*>(smem_raw);
   int* woff = reinterpret_cast<int*>(smem_raw + L.woff);
-  int* live16 = reinterpret_cast<int*>(smem_raw + L.live16);
-  int* lst = reinterpret_cast<int*>(smem_raw + L.lst);
-  int* nz = reinterpret_cast<int*>(smem_raw + L.nz);
   unsigned* n8s = reinterpret_cast<unsigned*>(smem_raw + L.n8);
   int8_t* wins = reinterpret_cast<int8_t*>(smem_raw + L.win);
 
@@ -994,14 +963,10 @@ __device__ __forceinline__ void imma_resident(const int8_t* __restrict__ xp,
   const int gq = lane >> 2;  // mma groupID
   const int tq = lane & 3;   // mma thread in group
   const int n_pix = g.block_oh * g.block_ow;
-  const int kxky = g.kx * g.ky;
-  const int bk16 = (g.bk + 15) / 16 * 16;
   const int live = cnt[j];
-  const int* idx_j = idx + static_cast<size_t>(j) * g.max_nnz;
-  const int nrows = kCompact ? krows[j] : 0;  // compacted: the column's rows
+  const int nrows = krows[j];  // the column's rows
   auto rows_of = [&](int u) { return min(kUnitK, nrows - u * kUnitK); };
-  const int n_units = kCompact ? (nrows + kUnitK - 1) / kUnitK
-                      : us.upt > 1 ? live * us.upt : (live + us.tpu - 1) / us.tpu;
+  const int n_units = (nrows + kUnitK - 1) / kUnitK;
 
   // one cp.async group: the window of M-block i into ring slot s (empty past
   // the last M-block, and for a column with no live tile)
@@ -1015,51 +980,25 @@ __device__ __forceinline__ void imma_resident(const int8_t* __restrict__ xp,
   };
 
   // once a block: every weight unit of the column (one group, each unit raw
-  // in its own packed buffer), then the first window; beside them the tile
-  // list, the epilogue rows and the K table
-  for (int u = 0; u < n_units; ++u) {
-    int8_t* buf = reinterpret_cast<int8_t*>(bufs + u * kBufWords);
-    if constexpr (kCompact)
-      load_rows(buf, w, nullptr, g, j, u * kUnitK, rows_of(u), tid);
-    else
-      load_unit(buf, w, g, j, idx_j, unit_at(u, us, bk16, live), tid);
-  }
+  // in its own packed buffer), then the first window; beside them the
+  // epilogue rows and the units' window offsets
+  for (int u = 0; u < n_units; ++u)
+    load_rows(reinterpret_cast<int8_t*>(bufs + u * kBufWords), w, nullptr, g, j, u * kUnitK,
+              rows_of(u), tid);
   cp_async_commit();
   request(blockIdx.x, 0);
-  if constexpr (!kCompact)
-    for (int s = tid; s < live; s += kImmaThreads) lst[s] = idx_j[s];
   for (int c = tid; c < g.bn; c += kImmaThreads) {
     const int n = j * g.bn + c;
     s_rows[0][c] = ep.scale != nullptr ? ep.scale[n] : 0.0f;
     s_rows[1][c] = ep.bias != nullptr ? ep.bias[n] : 0.0f;
     s_rows[2][c] = ep.out_scale != nullptr ? ep.out_scale[n] : 0.0f;
   }
-  if constexpr (kCompact)
-    for (int k = tid; k < n_units * kUnitK; k += kImmaThreads)
-      woff[k] = tap_offset(ktab[static_cast<size_t>(j) * g.kpad + k], g.cols, g.wpitch);
-  for (int k0 = 0; k0 < (kCompact ? 0 : bk16); k0 += kImmaThreads) {
-    const int k = k0 + tid;
-    int wo = -1;
-    if (k < bk16) {
-      const int ch = k / g.slot;
-      const int tap = k - ch * g.slot;
-      if (k < g.bk && tap < kxky && ch < g.cpk)
-        wo = ((tap / g.ky) * g.cols + (tap % g.ky)) * g.wpitch + ch;
-      woff[k] = wo;
-    }
-    const unsigned m = __ballot_sync(0xffffffffu, wo >= 0);
-    if (lane == 0 && k < bk16) {
-      live16[k / 16] = (m & 0xffffu) != 0;
-      if (k + 16 < bk16) live16[k / 16 + 1] = (m >> 16) != 0;
-    }
-  }
+  for (int k = tid; k < n_units * kUnitK; k += kImmaThreads)
+    woff[k] = tap_offset(ktab[static_cast<size_t>(j) * g.kpad + k], g.cols, g.wpitch);
   for (int u = tid; u < n_units; u += kImmaThreads) n8s[u] = 0;
   cp_async_wait<1>();  // the weights (the first window may be in flight)
   __syncthreads();
-  for (int u = 0; u < n_units; ++u) {
-    const Unit x = kCompact ? Unit{0, 1, u * kUnitK, rows_of(u)} : unit_at(u, us, bk16, live);
-    convert_in_place(bufs + u * kBufWords, &n8s[u], x.ns * x.rt, tid);
-  }
+  for (int u = 0; u < n_units; ++u) convert_in_place(bufs + u * kBufWords, &n8s[u], rows_of(u), tid);
   const Epilogue eps{ep.scale != nullptr ? s_rows[0] : nullptr,
                      ep.bias != nullptr ? s_rows[1] : nullptr,
                      ep.out_scale != nullptr ? s_rows[2] : nullptr, ep.relu};
@@ -1100,17 +1039,9 @@ __device__ __forceinline__ void imma_resident(const int8_t* __restrict__ xp,
     const int ow = m % g.block_ow;
     off[h] = valid[h] ? ((oh * g.stride) * g.cols + ow * g.stride) * g.wpitch : 0;
   }
-  int4 h_wa = make_int4(-1, -1, -1, -1), h_wb = h_wa;
-  bool h_live = false;
-  if constexpr (!kCompact) {
-    h_wa = *reinterpret_cast<const int4*>(woff + 4 * tq);
-    if (bk16 >= 32) h_wb = *reinterpret_cast<const int4*>(woff + 16 + 4 * tq);
-    h_live = bk16 == 16 ? live16[0] != 0 : (bk16 == 32 && (live16[0] | live16[1]));
-  }
 
   int acc[NTW][4];
-  // one 32- or 16-deep K step of this warp's m16 tile against its n8 tiles
-  // below hi
+  // one 32-deep K step of this warp's m16 tile against its n8 tiles below hi
   auto step32 = [&](const int* buf, int kw, int hi, const int8_t* wn, int4 wa, int4 wb) {
     const int a0 = gather4(wn, valid[0], off[0], wa);
     const int a1 = gather4(wn, valid[1], off[1], wa);
@@ -1124,16 +1055,6 @@ __device__ __forceinline__ void imma_resident(const int8_t* __restrict__ xp,
               buf[(kw + 4) * kBPitch + nt * 8 + gq]);
     }
   };
-  auto step16 = [&](const int* buf, int kw, int hi, const int8_t* wn, int4 wa) {
-    const int a0 = gather4(wn, valid[0], off[0], wa);
-    const int a1 = gather4(wn, valid[1], off[1], wa);
-#pragma unroll
-    for (int n = 0; n < NTW; ++n) {
-      const int nt = nt0 + n * WN;
-      if (nt >= hi) break;
-      mma_k16(acc[n], a0, a1, buf[kw * kBPitch + nt * 8 + gq]);
-    }
-  };
 
   int t = 0;  // this block's M-blocks so far
   for (int i = blockIdx.x; i < g.n_mb; i += G, ++t) {
@@ -1143,28 +1064,6 @@ __device__ __forceinline__ void imma_resident(const int8_t* __restrict__ xp,
     __syncthreads();
     request(i + G, (t + 1) % kWinRing);
     const int8_t* win = wins + (t % kWinRing) * L.wstride;
-    if (g.dsb && live > 0) {
-      // skip flag of every live step from the window (the whole window of
-      // its K-tile's cpk channels), one warp per step
-      const int slice = g.rows * g.cols * g.cpk;
-      for (int s = warp; s < live; s += kImmaWarps) {
-        const int cb = lst[s] * g.cpk;
-        int hit = 0;
-        for (int e0 = 0; e0 < slice; e0 += 32) {
-          const int e = e0 + lane;
-          if (e < slice) {
-            const int px = e / g.cpk;
-            hit |= win[px * g.wpitch + cb + (e - px * g.cpk)] != 0;
-          }
-          if (__any_sync(0xffffffffu, hit)) {
-            hit = 1;
-            break;
-          }
-        }
-        if (lane == 0) nz[s] = hit;
-      }
-      __syncthreads();
-    }
 
 #pragma unroll
     for (int n = 0; n < NTW; ++n)
@@ -1172,68 +1071,26 @@ __device__ __forceinline__ void imma_resident(const int8_t* __restrict__ xp,
       for (int c = 0; c < 4; ++c) acc[n][c] = 0;
     for (int u = 0; u < n_units; ++u) {
       // products only up to the last n8 tile whose weights in the unit hold
-      // a nonzero code (lane padding multiplies zeros)
+      // a nonzero code (lane padding multiplies zeros); the unit's rows
+      // against their window offsets, each a real tap of some channel (a
+      // whole unit: four K steps in straight-line code)
       const int hi = 32 - __clz(n8s[u]);
       if (nt0 >= hi) continue;
       const int* buf = bufs + u * kBufWords;
-      if constexpr (kCompact) {
-        // the unit's rows against their window offsets, each a real tap of
-        // some channel (a whole unit: four K steps in straight-line code)
-        const int* wo = woff + u * kUnitK;
-        const int rt = rows_of(u);
-        if (rt == kUnitK) {
+      const int* wo = woff + u * kUnitK;
+      const int rt = rows_of(u);
+      if (rt == kUnitK) {
 #pragma unroll
-          for (int d = 0; d < kUnitK; d += 32)
-            step32(buf, d / 4 + tq, hi, win, *reinterpret_cast<const int4*>(wo + d + 4 * tq),
-                   *reinterpret_cast<const int4*>(wo + d + 16 + 4 * tq));
-        } else {
-          for (int d = 0; d < rt; d += 32)
-            step32(buf, d / 4 + tq, hi, win, *reinterpret_cast<const int4*>(wo + d + 4 * tq),
-                   *reinterpret_cast<const int4*>(wo + d + 16 + 4 * tq));
-        }
-        continue;
-      }
-      const Unit x = unit_at(u, us, bk16, live);
-      for (int q = 0; q < x.ns; ++q) {
-        if (g.dsb && nz[x.s0 + q] == 0) continue;
-        const int8_t* wn = win + lst[x.s0 + q] * g.cpk;
-        const int kq = q * x.rt;  // the K-tile's first row in the unit
-        if (bk16 == 16) {
-          if (h_live) step16(buf, kq / 4 + tq, hi, wn, h_wa);
-        } else if (bk16 == 32) {
-          if (h_live) step32(buf, kq / 4 + tq, hi, wn, h_wa, h_wb);
-        } else if (x.rt == kUnitK) {
-          // a whole 128-row unit: four K steps in straight-line code, so
-          // that the loads of one step overlap the products of another (a
-          // 16-row group that lies in patch padding gathers zeros)
-#pragma unroll
-          for (int d = 0; d < kUnitK; d += 32)
-            step32(buf, (kq + d) / 4 + tq, hi, wn,
-                   *reinterpret_cast<const int4*>(woff + x.lo + d + 4 * tq),
-                   *reinterpret_cast<const int4*>(woff + x.lo + d + 16 + 4 * tq));
-        } else {
-          for (int k = x.lo; k < x.lo + x.rt;) {
-            const int kw = (kq + k - x.lo) / 4 + tq;
-            if (x.lo + x.rt - k >= 32) {
-              if (live16[k / 16] | live16[k / 16 + 1])
-                step32(buf, kw, hi, wn, *reinterpret_cast<const int4*>(woff + k + 4 * tq),
-                       *reinterpret_cast<const int4*>(woff + k + 16 + 4 * tq));
-              k += 32;
-            } else {
-              if (live16[k / 16])
-                step16(buf, kw, hi, wn, *reinterpret_cast<const int4*>(woff + k + 4 * tq));
-              k += 16;
-            }
-          }
-        }
+        for (int d = 0; d < kUnitK; d += 32)
+          step32(buf, d / 4 + tq, hi, win, *reinterpret_cast<const int4*>(wo + d + 4 * tq),
+                 *reinterpret_cast<const int4*>(wo + d + 16 + 4 * tq));
+      } else {
+        for (int d = 0; d < rt; d += 32)
+          step32(buf, d / 4 + tq, hi, win, *reinterpret_cast<const int4*>(wo + d + 4 * tq),
+                 *reinterpret_cast<const int4*>(wo + d + 16 + 4 * tq));
       }
     }
-    if (skips != nullptr && tid == 0) {
-      int skipped = 0;
-      if (g.dsb)
-        for (int s = 0; s < live; ++s) skipped += nz[s] == 0;
-      skips[i * n_cols + j] = skipped;
-    }
+    if (skips != nullptr && tid == 0) skips[i * n_cols + j] = 0;
 
     if (!g.stage_out) {
       imma_flush_frags<NTW, WN>(acc, eps, out, out_int8, g, i, j, any_n8, s_z, s_z8, mt, nt0, gq,
@@ -1278,8 +1135,9 @@ implicit_conv_kernel_imma(const int8_t* __restrict__ xp, const int8_t* __restric
                           void* __restrict__ out, int out_int8, int* __restrict__ skips,
                           const int* __restrict__ ktab, const int* __restrict__ krows,
                           ConvGeom g) {
+  static_assert(kCompact || !kResident, "the resident body runs on compacted K operands only");
   if constexpr (kResident) {
-    imma_resident<MT, kCompact>(xp, w, idx, cnt, ep, out, out_int8, skips, ktab, krows, g);
+    imma_resident<MT>(xp, w, cnt, ep, out, out_int8, skips, ktab, krows, g);
   } else {
     imma_per_block<MT, kCompact>(xp, w, idx, cnt, ep, out, out_int8, skips, ktab, krows, g);
   }
@@ -1705,27 +1563,13 @@ static cudaError_t allow_shared(Kernel kernel, size_t smem, size_t static_smem) 
                               static_cast<int>(smem));
 }
 
+// The per-block body: one block per (M-block, N-tile).
 template <int MT, bool kCompact>
-static cudaError_t launch_imma_mt(const void* xp, const void* w, const int* idx, const int* cnt,
-                                  const Epilogue& ep, void* out, int out_int8, int* skips,
-                                  const int* ktab, const int* krows, int n_blocks, int n_sm,
-                                  const ConvGeom& g, cudaStream_t stream) {
-  if (g.resident) {
-    // as many blocks as the card holds at once, each walking M-blocks
-    auto kernel = implicit_conv_kernel_imma<MT, true, kCompact>;
-    const size_t smem = resident_smem(g).total;
-    cudaError_t err = allow_shared(kernel, smem, kImmaStaticBytes);
-    if (err != cudaSuccess) return err;
-    int per_sm = 0;
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kImmaThreads, smem);
-    if (err != cudaSuccess) return err;
-    const int walkers = n_sm * (per_sm > 0 ? per_sm : 1);
-    const dim3 grid(n_blocks < walkers ? n_blocks : walkers, g.n_total / g.bn);
-    kernel<<<grid, dim3(kImmaThreads), smem, stream>>>(static_cast<const int8_t*>(xp),
-                                                   static_cast<const int8_t*>(w), idx, cnt, ep,
-                                                   out, out_int8, skips, ktab, krows, g);
-    return cudaGetLastError();
-  }
+static cudaError_t launch_imma_per_block(const void* xp, const void* w, const int* idx,
+                                         const int* cnt, const Epilogue& ep, void* out,
+                                         int out_int8, int* skips, const int* ktab,
+                                         const int* krows, int n_blocks, const ConvGeom& g,
+                                         cudaStream_t stream) {
   auto kernel = implicit_conv_kernel_imma<MT, false, kCompact>;
   const size_t smem = imma_smem(g, g.full).total;
   cudaError_t err = allow_shared(kernel, smem, kImmaStaticBytes);
@@ -1742,11 +1586,28 @@ static cudaError_t launch_imma_k(const void* xp, const void* w, const int* idx, 
                                  const Epilogue& ep, void* out, int out_int8, int* skips,
                                  const int* ktab, const int* krows, int n_blocks, int n_sm,
                                  const ConvGeom& g, cudaStream_t stream) {
+  if (g.resident) {
+    // compacted K operands (launch_imma checks): as many blocks as the card
+    // holds at once, each walking M-blocks
+    auto kernel = implicit_conv_kernel_imma<MT, true, true>;
+    const size_t smem = resident_smem(g).total;
+    cudaError_t err = allow_shared(kernel, smem, kImmaStaticBytes);
+    if (err != cudaSuccess) return err;
+    int per_sm = 0;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kImmaThreads, smem);
+    if (err != cudaSuccess) return err;
+    const int walkers = n_sm * (per_sm > 0 ? per_sm : 1);
+    const dim3 grid(n_blocks < walkers ? n_blocks : walkers, g.n_total / g.bn);
+    kernel<<<grid, dim3(kImmaThreads), smem, stream>>>(static_cast<const int8_t*>(xp),
+                                                   static_cast<const int8_t*>(w), idx, cnt, ep,
+                                                   out, out_int8, skips, ktab, krows, g);
+    return cudaGetLastError();
+  }
   if (g.compact)
-    return launch_imma_mt<MT, true>(xp, w, idx, cnt, ep, out, out_int8, skips, ktab, krows,
-                                    n_blocks, n_sm, g, stream);
-  return launch_imma_mt<MT, false>(xp, w, idx, cnt, ep, out, out_int8, skips, ktab, krows,
-                                   n_blocks, n_sm, g, stream);
+    return launch_imma_per_block<MT, true>(xp, w, idx, cnt, ep, out, out_int8, skips, ktab,
+                                           krows, n_blocks, g, stream);
+  return launch_imma_per_block<MT, false>(xp, w, idx, cnt, ep, out, out_int8, skips, ktab, krows,
+                                          n_blocks, g, stream);
 }
 
 static int largest_copy(uintptr_t ptr, int Cp, int wc) {
@@ -1760,23 +1621,25 @@ static cudaError_t launch_imma(const void* xp, const void* w, const int* idx, co
                                const Epilogue& ep, void* out, int out_int8, int* skips,
                                const int* ktab, const int* krows, int n_blocks, int resident,
                                ConvGeom g, cudaStream_t stream) {
-  // the caller's choice of path must be the rule's on this card; the
-  // resident window's pixels are padded to an odd number of 16-byte groups
-  // (with 32 or 64 channels packed the byte loads of an A fragment meet in
-  // two banks)
+  // the resident window's pixels are padded to an odd number of 16-byte
+  // groups (with 32 or 64 channels packed the byte loads of an A fragment
+  // meet in two banks)
   g.wpitch = window_pitch(g.Cp, 1);
   int dev = 0, n_sm = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess)
     err = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev);
   if (err != cudaSuccess) return err;
-  if ((resident != 0) != resident_path(g, n_blocks, n_sm)) return cudaErrorInvalidValue;
+  // the host picks the resident body (`takes_resident_path`); it takes
+  // compacted K operands whose units, window ring and staging a block holds
+  if (resident && (!g.compact || resident_smem(g).total + kImmaStaticBytes >
+                                     static_cast<size_t>(kMaxSharedBytes)))
+    return cudaErrorInvalidValue;
   g.resident = resident != 0;
   // all channels of the window at once where they fit, else one K-tile's
   // (the kernel's static shared memory holds the epilogue rows); the
-  // resident path always holds all of them
-  // (compacted K operands only where the per-block body holds all of
-  // them: `takes_compact_path` on the host)
+  // resident body always holds all of them, and compacted K operands run
+  // only where the per-block body does (`takes_compact_path` on the host)
   const size_t budget = kMaxSharedBytes - kImmaStaticBytes;
   g.full = g.resident || imma_smem(g, 1).total <= budget ? 1 : 0;
   if (!g.resident && imma_smem(g, g.full).total > budget) return cudaErrorInvalidValue;
@@ -1846,14 +1709,15 @@ static cudaError_t launch_mma(const void* xp, const void* w, const int* idx, con
 // `dtype`; idx (n_total/bn, max_nnz), cnt (n_total/bn) int32; scale / bias /
 // out_scale f32 rows of length n_total or null; out (B*bpi*bm, n_total) in
 // the operand's float type (f32 for int8 codes) or int8 codes when out_scale
-// is given; skips (B*bpi, n_total/bn) int32 or null; resident (int8 codes)
-// the path `resident_path` gives this launch on the current card, the
-// resident one where nonzero. Compacted K operands (int8 codes, no dsb):
-// ktab (n_total/bn, kpad) int32 table entries and krows (n_total/bn) int32
-// row counts, multiples of 32, with w the compacted weight (kpad, n_total),
-// kpad a multiple of 128; else ktab and krows null. Returns the launch's
-// cudaError_t (0 = launched; a resident flag the rule does not give, or
-// compacted operands whose window does not fit, is refused).
+// is given; skips (B*bpi, n_total/bn) int32 or null. Compacted K operands
+// (int8 codes, no dsb): ktab (n_total/bn, kpad) int32 table entries and
+// krows (n_total/bn) int32 row counts, multiples of 32, with w the compacted
+// weight (kpad, n_total), kpad a multiple of 128; else ktab and krows null.
+// resident (compacted operands only): the resident body where nonzero, as
+// `takes_resident_path` picks it on the host. Returns the launch's
+// cudaError_t (0 = launched; a resident launch on padded operands or past a
+// block's shared memory, or compacted operands whose window does not fit,
+// is refused).
 extern "C" int hapm_implicit_block_sparse_conv(
     const void* xp, const void* w, const int* idx, const int* cnt, const float* scale,
     const float* bias, const float* out_scale, void* out, int* skips, const int* ktab,

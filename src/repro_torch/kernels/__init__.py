@@ -17,23 +17,29 @@ from typing import Dict, NamedTuple, Optional, Tuple
 
 def launch_counts() -> Dict[str, int]:
     """{kernel name: CUDA launches since the last reset}."""
-    from . import block_sparse_matmul as bsm
-    from . import implicit_conv as ic
-    from . import int8_matmul as i8
-    return {"block_sparse_matmul": bsm.launch_count(),
-            "implicit_block_sparse_conv": ic.launch_count(),
-            "block_sparse_grad_weight": bsm.grad_weight_launch_count(),
-            "int8_matmul": i8.launch_count()}
+    from .. import tracing
+    return {name: tracing.counter(counter) for name, counter in _launch_counters().items()}
 
 
 def reset_launch_counts() -> None:
+    """Zero the four launch counters, and K2's per-path and K-row counters
+    (``implicit_conv.RESIDENT``, ``COMPACT``, ``K_ROWS``, ``TAP_ROWS``)
+    with its launches."""
+    from .. import tracing
+    from . import implicit_conv as ic
+    tracing.reset(*_launch_counters().values(), ic.RESIDENT, ic.COMPACT, ic.K_ROWS,
+                  ic.TAP_ROWS)
+
+
+def _launch_counters() -> Dict[str, str]:
+    """{kernel name: the recorder's launch counter of its wrapper}."""
     from . import block_sparse_matmul as bsm
     from . import implicit_conv as ic
     from . import int8_matmul as i8
-    bsm.reset_launch_count()
-    bsm.reset_grad_weight_launch_count()
-    ic.reset_launch_count()
-    i8.reset_launch_count()
+    return {"block_sparse_matmul": bsm.LAUNCHES,
+            "implicit_block_sparse_conv": ic.LAUNCHES,
+            "block_sparse_grad_weight": bsm.GRAD_W_LAUNCHES,
+            "int8_matmul": i8.LAUNCHES}
 
 
 # the device-side name (a substring of the profiler's event name) of the one

@@ -71,26 +71,6 @@ LAUNCHES = "kernel.block_sparse_matmul.launches"
 GRAD_W_LAUNCHES = "kernel.block_sparse_grad_weight.launches"
 
 
-def launch_count() -> int:
-    """CUDA launches of :func:`block_sparse_matmul`'s kernel since the last
-    reset (the recorder's ``kernel.block_sparse_matmul.launches``)."""
-    return tracing.counter(LAUNCHES)
-
-
-def reset_launch_count() -> None:
-    tracing.reset(LAUNCHES)
-
-
-def grad_weight_launch_count() -> int:
-    """CUDA launches of :func:`block_sparse_grad_weight`'s kernel since the
-    last reset (the recorder's ``kernel.block_sparse_grad_weight.launches``)."""
-    return tracing.counter(GRAD_W_LAUNCHES)
-
-
-def reset_grad_weight_launch_count() -> None:
-    tracing.reset(GRAD_W_LAUNCHES)
-
-
 # --- shared epilogue contract (also consumed by kernels.implicit_conv) ----
 
 def quantized_contract(x, w, scale, out_scale=None):

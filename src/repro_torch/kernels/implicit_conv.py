@@ -42,11 +42,14 @@ Two implementations of the one function live here:
   the product loop; f32 operands as 3×TF32 (each operand split into two
   TF32 halves, three products summed in f32: within 1e-4, where one TF32
   product is not) and bf16 operands with exact products, both in f32. The
-  int8 instance has a second, resident body for large launches (every conv
-  of the served net at batch 2048): as many blocks as the card holds, each
-  converting its column's weights once and walking M-blocks; the launch's
-  geometry picks it (:func:`takes_resident_path`, which the C launcher
-  checks), and the recorder counts it (``RESIDENT``).
+  int8 instance has a second, resident body for large launches on compacted
+  K operands (every conv of the served CIFAR net at batch 2048): as many
+  blocks as the card holds, each converting its column's weights once and
+  walking M-blocks. The launch's geometry picks it
+  (:func:`takes_resident_path`; the rule lives here alone, and the C
+  launcher only refuses a resident launch on padded operands or past a
+  block's shared memory); the recorder counts it (``RESIDENT``). Every
+  launch on padded operands takes the per-block body.
 
 **Compacted K** (int8 codes, without ``activation_dsb``): a packed K-tile
 gives each input channel a slot of ``ceil8(kx·ky)`` rows, so a 1×1 tile
@@ -111,13 +114,14 @@ COMPACT = "kernel.implicit_block_sparse_conv.compact"
 K_ROWS = "kernel.implicit_block_sparse_conv.k_rows"
 TAP_ROWS = "kernel.implicit_block_sparse_conv.tap_rows"
 
-# The int8 instance's shared memory (csrc/implicit_conv.cu, `imma_smem`,
-# `resident_smem` and `resident_path`, which this module mirrors): what one
-# SM holds, a block's reserve beside it, the static shared memory of the
-# int8 kernel, a packed 128-row weight unit, the windows in flight, and
-# what the per-block body holds beside its window on compacted operands
-# (two packed units, a raw ring of three units with their 128 table
-# entries, and two units' window offsets).
+# The int8 instance's shared memory, mirrored from csrc/implicit_conv.cu
+# (`imma_smem`, `resident_smem`): the static shared memory of the int8
+# kernel, a packed 128-row weight unit, the windows in flight, and what the
+# per-block body holds beside its window on compacted operands (two packed
+# units, a raw ring of three units with their 128 table entries, and two
+# units' window offsets). What one SM holds and a block's reserve beside it
+# are the resident rule's (:func:`takes_resident_path`), which only this
+# module applies.
 SM_SHARED_BYTES = 233472
 _BLOCK_RESERVE_BYTES = 1024
 _IMMA_STATIC_BYTES = 4 * KERNEL_MAX_BN * 4 + KERNEL_MAX_BN + 16
@@ -128,28 +132,6 @@ _COMPACT_BESIDE_WINDOW_BYTES = (2 * _UNIT_BYTES + 3 * _UNIT_ROWS * (KERNEL_MAX_B
                                 + 2 * _UNIT_ROWS * 4)
 
 
-def launch_count() -> int:
-    """CUDA launches of this module's kernel since the last reset (the
-    recorder's ``kernel.implicit_block_sparse_conv.launches``)."""
-    return tracing.counter(LAUNCHES)
-
-
-def reset_launch_count() -> None:
-    tracing.reset(LAUNCHES, RESIDENT, COMPACT, K_ROWS, TAP_ROWS)
-
-
-def resident_launch_count() -> int:
-    """Launches of the int8 instance that took the resident path (the
-    recorder's ``kernel.implicit_block_sparse_conv.resident``)."""
-    return tracing.counter(RESIDENT)
-
-
-def compact_launch_count() -> int:
-    """Launches of the int8 instance on compacted K operands (the
-    recorder's ``kernel.implicit_block_sparse_conv.compact``)."""
-    return tracing.counter(COMPACT)
-
-
 def window_pitch(cp: int) -> int:
     """Bytes per window pixel of ``cp`` int8 channels in the resident path's
     shared memory: padded to an odd number of 16-byte groups (with 32 or 64
@@ -157,47 +139,32 @@ def window_pitch(cp: int) -> int:
     return 16 * (-(-cp // 16) | 1) if cp >= 16 else cp
 
 
-def resident_smem_bytes(bm: int, bk: int, max_nnz: int, window_bytes: int,
-                        k_units: Optional[int] = None) -> int:
-    """Shared memory a block of the int8 instance's resident path holds:
-    every weight unit of its column, the K table and the step lists, 16
-    staging rows of output codes an m16 tile, two windows of
-    ``window_bytes`` (window pixels times :func:`window_pitch`), and the
-    static epilogue rows. The units are ``max_nnz`` live K-tiles packed 128
-    rows a unit, or on compacted operands the ``k_units`` units of the
-    widest column, with a window offset for each of their rows (and no step
-    lists: compacted launches skip no step)."""
-    bk16 = _ceil_to(bk, 16)
+def resident_smem_bytes(bm: int, window_bytes: int, k_units: int) -> int:
+    """Shared memory a block of the int8 instance's resident body holds:
+    the ``k_units`` 128-row units of the widest column of a launch's
+    compacted K operands (:class:`CompactK`) with a window offset for each
+    of their rows and an n8 mask each, 16 staging rows of output codes an
+    m16 tile, two windows of ``window_bytes`` (window pixels times
+    :func:`window_pitch`), and the static epilogue rows."""
     mt = 1 if bm <= 16 else 2 if bm <= 32 else 4 if bm <= 64 else 8
-    if k_units is not None:
-        units = k_units
-        tables = _ceil_to(units * _UNIT_ROWS * 4, 16)
-    else:
-        upt = -(-bk16 // 128)                   # units per K-tile
-        tpu = 128 // bk16 if upt == 1 else 1    # K-tiles per unit
-        units = max_nnz * upt if upt > 1 else -(-max_nnz // tpu)
-        tables = (_ceil_to(bk16 * 4, 16) + _ceil_to(bk16 // 16 * 4, 16)
-                  + 2 * _ceil_to(max_nnz * 4, 16))
-    return (units * _UNIT_BYTES + tables + _ceil_to(units * 4, 16)
-            + mt * 16 * (KERNEL_MAX_BN + 16)
+    return (k_units * _UNIT_BYTES + _ceil_to(k_units * _UNIT_ROWS * 4, 16)
+            + _ceil_to(k_units * 4, 16) + mt * 16 * (KERNEL_MAX_BN + 16)
             + _WINDOW_RING * _ceil_to(window_bytes, 16) + _IMMA_STATIC_BYTES)
 
 
-def takes_resident_path(n_blocks: int, bm: int, bk: int, max_nnz: int,
-                        window_bytes: int, n_sm: int,
-                        k_units: Optional[int] = None) -> bool:
-    """Whether a launch of the int8 instance over ``n_blocks`` M-blocks
-    takes the resident path on a card of ``n_sm`` SMs: weight-stationary
+def takes_resident_path(n_blocks: int, bm: int, window_bytes: int, n_sm: int,
+                        k_units: int) -> bool:
+    """Whether a launch of the int8 instance on compacted K operands (the
+    widest column ``k_units`` 128-row units) over ``n_blocks`` M-blocks
+    takes the resident body on a card of ``n_sm`` SMs: weight-stationary
     blocks, as many as the card holds at once, each converting its column's
-    live weight units once and walking M-blocks. It does where the units,
-    the window ring and the staging fit a block's shared memory and each
-    such block (at most two an SM) walks at least two M-blocks; elsewhere
+    weight units once and walking M-blocks. It does where the units, the
+    window ring and the staging fit a block's shared memory and each such
+    block (at most two an SM) walks at least two M-blocks; elsewhere
     (batch-1 serving, windows or columns too large) every (M-block, column)
-    gets a block of its own. ``k_units``: the launch runs on compacted K
-    operands, whose widest column has that many 128-row units
-    (:class:`CompactK`). The launcher checks the choice against the same
-    rule and refuses a launch where they differ."""
-    need = resident_smem_bytes(bm, bk, max_nnz, window_bytes, k_units)
+    gets a block of its own, as does every launch on padded operands. The
+    rule's only copy: the launcher takes the choice as given."""
+    need = resident_smem_bytes(bm, window_bytes, k_units)
     if need > CARD_SHARED_BYTES:
         return False
     per_sm = min(2, SM_SHARED_BYTES // (need + _BLOCK_RESERVE_BYTES))
@@ -626,9 +593,9 @@ def implicit_block_sparse_conv(
              if count_skips else None)
     if n_blocks == 0:
         return (out, skips) if count_skips else out
-    resident = xp.dtype == torch.int8 and takes_resident_path(
-        n_blocks, mb.bm, bk, idx.shape[1], rows * cols * window_pitch(Cp),
-        _sm_count(dev.index), None if compact is None else compact.k_units)
+    resident = compact is not None and takes_resident_path(
+        n_blocks, mb.bm, rows * cols * window_pitch(Cp), _sm_count(dev.index),
+        compact.k_units)
     ktab, krows = (None, None) if compact is None else (compact.tab, compact.rows)
     lib = _build.load()
     ptr = lambda t: None if t is None else t.data_ptr()

@@ -40,16 +40,6 @@ KERNEL_MAX_BN = 128
 LAUNCHES = "kernel.int8_matmul.launches"
 
 
-def launch_count() -> int:
-    """CUDA launches of :func:`int8_matmul`'s kernel since the last reset
-    (the recorder's ``kernel.int8_matmul.launches``)."""
-    return tracing.counter(LAUNCHES)
-
-
-def reset_launch_count() -> None:
-    tracing.reset(LAUNCHES)
-
-
 def _check(x_codes, w_codes, scale, bm, bk, bn):
     """Validate as the JAX wrapper does; -> (M, K, N, scale as an (N,) f32
     row on x's device)."""

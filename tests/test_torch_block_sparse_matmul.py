@@ -19,7 +19,7 @@ import jax.numpy as jnp
 
 from repro.kernels import block_sparse_matmul as JK, ops as JO, ref as JR
 from repro.sparse import block_mask as JB
-from repro_torch.kernels import block_sparse_matmul as TK, ops as TO, ref as TR
+from repro_torch.kernels import block_sparse_matmul as TK, launch_counts, ops as TO, ref as TR
 from repro_torch.sparse import block_mask as TB
 
 
@@ -241,9 +241,9 @@ def test_wrapper_takes_plain_version_only_on_cpu(monkeypatch):
     calls = []
     monkeypatch.setattr(TK, "block_sparse_matmul_plain",
                         lambda *a, **k: calls.append(1) or torch.zeros(1))
-    before = TK.launch_count()
+    before = launch_counts()["block_sparse_matmul"]
     TK.block_sparse_matmul(_t(x), _t(w), _t(plan.idx), _t(plan.cnt), block=(16, 128), bm=16)
-    assert calls == [1] and TK.launch_count() == before
+    assert calls == [1] and launch_counts()["block_sparse_matmul"] == before
 
 
 def test_int8_conv_ref_equal():

@@ -11,8 +11,8 @@
   misses, and ``apply`` in f32 equals the reference's f32 forward;
 - the max-pool on codes is pool-then-requantize bit for bit;
 - every conv of ResNet-50 takes K2's implicit path at buckets 1 and 128,
-  all on compacted K operands and 20 on the resident path at 128 on an
-  H100, and the bound convs count K2's K rows and tap rows.
+  all on compacted K operands, 21 on the resident path at 128 on an H100
+  and none at 1, and the bound convs count K2's K rows and tap rows.
 
 The ``gpu`` tests run K2 int8 at each distinct ResNet-50 geometry at batch
 128 against the plain version on the card, on compacted and padded K
@@ -253,35 +253,29 @@ def test_twenty_one_convs_are_resident_at_batch_128():
     and stage 3's first (their columns of 256 or 512 input channels now 2
     or 4 units) and stage 2's projection (at stride 1 on every second
     pixel); stages 3 and 4 have too few M-blocks otherwise, stage 2's 3x3s
-    (9 units) columns too large.
-    On the padded tiles it was 13 of them: the 1x1s of 256 or more input
-    channels had columns too large to hold. The three strided projections
-    run compacted at stride 1 on every second pixel (at stride 2, two of
-    them have windows of all channels no block holds)."""
-    resident, padded_resident, strided = [], [], []
+    (9 units) columns too large. At bucket 1 none is. The three strided
+    projections run compacted at stride 1 on every second pixel (at stride
+    2, two of them have windows of all channels no block holds)."""
+    resident, resident_at_1, strided = [], [], []
     for c in cnn.network(R50).convs:
         layout, plan, geo, mb, rows, cols = _launch(c, 128)
         cp = layout.tiles[0] * geo["cpk"]
-        args = (128 * mb.bpi, mb.bm, layout.block[0], plan.idx.shape[1],
-                rows * cols * IC.window_pitch(cp), H100_SMS)
         name = "/".join(c.path[:-1])
-        compacted = args
         if c.k == 1 and c.stride > 1:
             rows, cols = IC.window_shape(mb, 1, 1, 1)
-            compacted = args[:4] + (rows * cols * IC.window_pitch(cp), H100_SMS)
             strided.append(name)
         assert IC.takes_compact_path(rows, cols, cp)
-        if IC.takes_resident_path(*compacted, k_units=_k_units(layout, plan, geo)):
+        args = (mb.bm, rows * cols * IC.window_pitch(cp), H100_SMS,
+                _k_units(layout, plan, geo))
+        if IC.takes_resident_path(128 * mb.bpi, *args):
             resident.append(name)
-        if IC.takes_resident_path(*args):
-            padded_resident.append(name)
+        if IC.takes_resident_path(mb.bpi, *args):
+            resident_at_1.append(name)
     assert resident == ["conv0", "s0b0/conv1", "s0b0/conv2", "s0b0/conv3", "s0b0/proj",
                         "s0b1/conv1", "s0b1/conv2", "s0b1/conv3", "s0b2/conv1", "s0b2/conv2",
                         "s0b2/conv3", "s1b0/conv1", "s1b0/conv3", "s1b0/proj", "s1b1/conv1",
                         "s1b1/conv3", "s1b2/conv1", "s1b2/conv3", "s1b3/conv1", "s1b3/conv3", "s2b0/conv1"]
-    assert padded_resident == ["conv0", "s0b0/conv1", "s0b0/conv2", "s0b0/conv3", "s0b0/proj",
-                               "s0b1/conv2", "s0b1/conv3", "s0b2/conv2", "s0b2/conv3",
-                               "s1b0/conv3", "s1b1/conv3", "s1b2/conv3", "s1b3/conv3"]
+    assert resident_at_1 == []
     assert strided == ["s1b0/proj", "s2b0/proj", "s3b0/proj"]
 
 
@@ -328,8 +322,9 @@ def _r50_geometries():
 def test_k2_int8_at_resnet50_geometries_on_the_card(geom, operands):
     """K2 int8, streamed, at batch 128 and half the groups live, on
     compacted K operands where the rule takes them and on the padded tiles:
-    bit-equal to the plain version on the card, one launch counted, the path
-    the rule gives."""
+    bit-equal to the plain version on the card, one launch counted, the body
+    the rule gives on compacted operands and the per-block body on padded
+    ones."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernel has no CPU mode")
     dev = torch.device("cuda", 0)
@@ -372,17 +367,16 @@ def test_k2_int8_at_resnet50_geometries_on_the_card(geom, operands):
             kk = {**kw, "stride": 1}
             rows, cols = IC.window_shape(mb, 1, 1, 1)
         assert IC.takes_compact_path(rows, cols, xp.shape[3])
-    resident = IC.takes_resident_path(
-        128 * mb.bpi, mb.bm, layout.block[0], plan.idx.shape[1],
-        rows * cols * IC.window_pitch(xp.shape[3]),
-        torch.cuda.get_device_properties(dev).multi_processor_count,
-        None if ck is None else ck.k_units)
-    before = (IC.launch_count(), IC.resident_launch_count(), IC.compact_launch_count())
+    resident = ck is not None and IC.takes_resident_path(
+        128 * mb.bpi, mb.bm, rows * cols * IC.window_pitch(xp.shape[3]),
+        torch.cuda.get_device_properties(dev).multi_processor_count, ck.k_units)
+    before = (kernels.launch_counts()["implicit_block_sparse_conv"],
+              tracing.counter(IC.RESIDENT), tracing.counter(IC.COMPACT))
     got = IC.implicit_block_sparse_conv(xk, wp, idx, cnt, *rows_, **kk, compact=ck)
     torch.cuda.synchronize()
-    assert IC.launch_count() == before[0] + 1
-    assert IC.resident_launch_count() == before[1] + int(resident)
-    assert IC.compact_launch_count() == before[2] + int(ck is not None)
+    assert kernels.launch_counts()["implicit_block_sparse_conv"] == before[0] + 1
+    assert tracing.counter(IC.RESIDENT) == before[1] + int(resident)
+    assert tracing.counter(IC.COMPACT) == before[2] + int(ck is not None)
     want = IC.implicit_block_sparse_conv_plain(xp, wp, idx, cnt, *rows_, **kw)
     assert got.dtype == torch.int8 and torch.equal(got, want)
     if ck is not None:

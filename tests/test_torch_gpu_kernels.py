@@ -23,8 +23,9 @@ multiple of 16 rows, 16-, 32- and 128-row K-tiles, K-steps that span two
 channels, columns with no live tile, all-zero windows at stride 2, windows
 whose untapped pixels alone are nonzero, column segments, windows beyond 48
 KB and beyond what fits with all channels, the served net's eight layer
-geometries at batch 2048 and a batch of 1031 on the resident path (the path
-the rule picks, counted), codes over the whole range on both paths, two
+geometries at batch 2048 and a batch of 1031 on the resident body with
+compacted K operands and on the per-block body with padded ones (the body
+the rule picks, counted), codes over the whole range on both bodies, two
 launches bit-identical and skip counters equal; for the weight-gradient kernel (tensor-core
 products over stacks of one column's live tiles) every tile shape of the
 training path, one live tile and all of them in a shuffled order, row
@@ -61,6 +62,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from repro_torch import kernels, tracing
 from repro_torch.core import groups as TG, quant as TQ
 from repro_torch.kernels import block_sparse_matmul as BSM, implicit_conv as IC
 from repro_torch.kernels import int8_matmul as I8, ref as REF
@@ -118,10 +120,10 @@ def test_block_sparse_matmul_kernel_vs_plain(dev, bm, block, mode):
         kw["scale"] = rows["scale"]
     if mode == "int8_requant":
         kw["out_scale"] = rows["out_scale"]
-    before = BSM.launch_count()
+    before = kernels.launch_counts()["block_sparse_matmul"]
     got = BSM.block_sparse_matmul(x, w, idx, cnt, **kw)
     torch.cuda.synchronize()
-    assert BSM.launch_count() == before + 1
+    assert kernels.launch_counts()["block_sparse_matmul"] == before + 1
     want = BSM.block_sparse_matmul_plain(x, w, idx, cnt, **kw)
     _check(got, want, {"f32": 1e-4, "bf16": 3.2e-2}.get(mode, 0))
 
@@ -161,11 +163,11 @@ def test_block_sparse_matmul_tensor_core_x_lanes(dev, bm, block, dtype):
     for lanes in sorted({bk, 12, 120, 1} & set(range(1, bk + 1)), reverse=True):
         xz = _zero_past_lanes(x, bk, lanes)
         kw = dict(block=block, bm=bm, relu=True, bias=rows["bias"], x_lanes=lanes)
-        before = BSM.launch_count()
+        before = kernels.launch_counts()["block_sparse_matmul"]
         got = BSM.block_sparse_matmul(xz, w, idx, cnt, **kw)
         again = BSM.block_sparse_matmul(xz, w, idx, cnt, **kw)
         torch.cuda.synchronize()
-        assert BSM.launch_count() == before + 2
+        assert kernels.launch_counts()["block_sparse_matmul"] == before + 2
         assert torch.equal(got, again), lanes
         want = BSM.block_sparse_matmul_plain(xz, w, idx, cnt, **kw)
         _check(got, want, 1e-4 if dtype == torch.float32 else 3.2e-2)
@@ -220,12 +222,12 @@ def _imma_check(x, w, idx, cnt, rows, block, bm, twice=True):
             kw.update(bias=rows["bias"], relu=True)
         if epi == "requant":
             kw["out_scale"] = rows["out_scale"]
-        before = BSM.launch_count()
+        before = kernels.launch_counts()["block_sparse_matmul"]
         got = BSM.block_sparse_matmul(x, w, idx, cnt, **kw)
         if twice:
             again = BSM.block_sparse_matmul(x, w, idx, cnt, **kw)
         torch.cuda.synchronize()
-        assert BSM.launch_count() == before + 1 + twice
+        assert kernels.launch_counts()["block_sparse_matmul"] == before + 1 + twice
         if twice:
             assert torch.equal(got, again), epi
         _check(got, BSM.block_sparse_matmul_plain(x, w, idx, cnt, **kw), 0)
@@ -491,12 +493,13 @@ IMMA_CASES = [  # (k, cin, cout, stride, h, w, batch, cap, n_cu, activation patt
     (3, 40, 8, 7, 77, 77, 1, 128, 4, "half"),           # all channels too large: per-step window
     (3, 16, 32, 2, 32, 32, 4, 128, 12, "zero_windows"),  # stride 2, whole windows zero
     (1, 16, 16, 2, 16, 16, 2, 128, 4, "odd_only"),      # stride 2: only untapped pixels nonzero
-    # the served net's eight layer geometries at batch 2048: the resident path
+    # the served net's eight layer geometries at batch 2048: the resident body
+    # on compacted operands, the per-block body on padded ones
     *[(k, cin, cout, stride, h, h, 2048, 128, 12, "half_batch")
       for k, cin, cout, stride, h in CIFAR_GEOMS],
     (3, 16, 16, 1, 32, 32, 1031, 128, 12, "half_batch"),  # M-blocks no multiple of the grid
     (3, 16, 16, 1, 32, 32, 64, 64, 12, "half_batch"),     # bm 64: 47.8 KB + 2.1 KB static
-    (3, 64, 64, 1, 8, 8, 2048, 128, 12, "full_range"),    # codes -128 .. 127, resident
+    (3, 64, 64, 1, 8, 8, 2048, 128, 12, "full_range"),    # codes -128 .. 127, batch 2048
     (3, 16, 16, 1, 32, 32, 32, 128, 12, "full_range"),    # the same on the per-block path
 ]
 
@@ -562,11 +565,12 @@ def _imma_operands(case, packed, mode, dev):
 def test_implicit_conv_int8_tensor_core_instance(dev, case, packed, mode):
     """The int8 instance (tensor-core products) bit-equal to the plain
     version on the padded tiles, outputs and skip counters, two launches
-    bit-identical, one launch counted per call; launches of 1024 M-blocks
-    or more take the resident path and those of 256 or fewer the per-block
-    path, as the rule says (on compacted K operands with their units, which
-    the launcher checks; a window of all channels no block holds beside the
-    weight ring refuses them)."""
+    bit-identical, one launch counted per call; on compacted K operands
+    launches of 1024 M-blocks or more take the resident body and those of
+    256 or fewer the per-block body, as the rule says (a window of all
+    channels no block holds beside the weight ring refuses them); on padded
+    operands (``int8``, ``streamed_dsb``) every launch takes the per-block
+    body, 1024 M-blocks or more included."""
     args, kw = _imma_operands(case, packed, mode, dev)
     xp, mb = args[0], kw["mb"]
     rows, cols = IC.window_shape(mb, kw["kx"], kw["ky"], kw["stride"])
@@ -576,22 +580,22 @@ def test_implicit_conv_int8_tensor_core_instance(dev, case, packed, mode):
         with pytest.raises(ValueError, match="compacted K operands need it"):
             IC.implicit_block_sparse_conv(*args, **kw)
         return
-    resident = IC.takes_resident_path(
-        xp.shape[0] * mb.bpi, mb.bm, kw["block"][0], args[2].shape[1],
-        rows * cols * IC.window_pitch(xp.shape[3]),
-        torch.cuda.get_device_properties(dev).multi_processor_count,
-        None if ck is None else ck.k_units)
-    if xp.shape[0] * mb.bpi >= 1024:
-        assert resident
-    elif xp.shape[0] * mb.bpi <= 256:
+    n_blocks = xp.shape[0] * mb.bpi
+    resident = ck is not None and IC.takes_resident_path(
+        n_blocks, mb.bm, rows * cols * IC.window_pitch(xp.shape[3]),
+        torch.cuda.get_device_properties(dev).multi_processor_count, ck.k_units)
+    if n_blocks >= 1024:
+        assert resident == (ck is not None)
+    elif n_blocks <= 256:
         assert not resident
-    before = (IC.launch_count(), IC.resident_launch_count(), IC.compact_launch_count())
+    before = (kernels.launch_counts()["implicit_block_sparse_conv"],
+              tracing.counter(IC.RESIDENT), tracing.counter(IC.COMPACT))
     got = IC.implicit_block_sparse_conv(*args, **kw)
     again = IC.implicit_block_sparse_conv(*args, **kw)
     torch.cuda.synchronize()
-    assert IC.launch_count() == before[0] + 2
-    assert IC.resident_launch_count() == before[1] + 2 * resident
-    assert IC.compact_launch_count() == before[2] + 2 * (ck is not None)
+    assert kernels.launch_counts()["implicit_block_sparse_conv"] == before[0] + 2
+    assert tracing.counter(IC.RESIDENT) == before[1] + 2 * resident
+    assert tracing.counter(IC.COMPACT) == before[2] + 2 * (ck is not None)
     want = IC.implicit_block_sparse_conv_plain(*args, **{**kw, "compact": None})
     assert torch.equal(got[1], want[1]) and torch.equal(again[1], got[1])
     if case[-1] == "zero_windows" and kw["activation_dsb"]:
@@ -665,11 +669,11 @@ def test_implicit_conv_float_tensor_core_instance(dev, case, packed, dtype):
     within 1e-4, bf16 within one output ulp; two launches bit-identical,
     one launch counted per call; skip counters zero."""
     args, kw = _float_operands(case, packed, dtype, dev)
-    before = IC.launch_count()
+    before = kernels.launch_counts()["implicit_block_sparse_conv"]
     got, skips = IC.implicit_block_sparse_conv(*args, count_skips=True, **kw)
     again = IC.implicit_block_sparse_conv(*args, **kw)
     torch.cuda.synchronize()
-    assert IC.launch_count() == before + 2
+    assert kernels.launch_counts()["implicit_block_sparse_conv"] == before + 2
     assert torch.equal(got, again)
     assert int(skips.abs().sum()) == 0
     want = IC.implicit_block_sparse_conv_plain(*args, **kw)
@@ -796,11 +800,11 @@ def _grad_scale(x, g, kk, nn, block):
                                             (131072, 128, True)])
 def test_grad_weight_kernel_vs_plain(dev, block, dtype, M, bm, all_tiles):
     x, g, kk, nn = _grad_case(M, block, dtype, all_tiles, M + block[0], dev)
-    before = BSM.grad_weight_launch_count()
+    before = kernels.launch_counts()["block_sparse_grad_weight"]
     got = BSM.block_sparse_grad_weight(x, g, kk, nn, block=block, bm=bm)
     again = BSM.block_sparse_grad_weight(x, g, kk, nn, block=block, bm=bm)
     torch.cuda.synchronize()
-    assert BSM.grad_weight_launch_count() == before + 2
+    assert kernels.launch_counts()["block_sparse_grad_weight"] == before + 2
     assert torch.equal(got, again)                  # fixed reduction order
     want = BSM.block_sparse_grad_weight_plain(x, g, kk, nn, block=block, bm=bm)
     assert got.dtype == torch.float32 and got.shape == want.shape
@@ -847,11 +851,13 @@ def test_block_sparse_matmul_and_grad_weight_at_the_lm_wi_shape(dev, dtype):
     w = torch.from_numpy((rs.randn(K, N) / np.sqrt(K)).astype(np.float32)).to(dev).to(dtype)
     g = torch.from_numpy(rs.randn(M, N).astype(np.float32)).to(dev).to(dtype)
     xr, wr = x.clone().requires_grad_(), w.clone().requires_grad_()
-    k1, k3 = BSM.launch_count(), BSM.grad_weight_launch_count()
+    before = kernels.launch_counts()
     y = OPS.make_block_sparse_matmul(plan, tm)(xr, wr)
     y.backward(g)
     torch.cuda.synchronize()
-    assert BSM.launch_count() == k1 + 2 and BSM.grad_weight_launch_count() == k3 + 1
+    after = kernels.launch_counts()
+    assert after["block_sparse_matmul"] == before["block_sparse_matmul"] + 2
+    assert after["block_sparse_grad_weight"] == before["block_sparse_grad_weight"] + 1
     t = lambda a: torch.from_numpy(a).to(dev)
     live = np.argwhere(tm)
     kk, nn = t(live[:, 0].astype(np.int32)), t(live[:, 1].astype(np.int32))
@@ -1015,11 +1021,11 @@ def _int8_case(M, K, N, per_cout, seed, dev):
 @pytest.mark.parametrize("per_cout", [False, True], ids=["scalar", "per_cout"])
 def test_int8_matmul_kernel_vs_plain(dev, M, K, N, bm, bk, bn, per_cout):
     x, w, scale = _int8_case(M, K, N, per_cout, M + K + N, dev)
-    before = I8.launch_count()
+    before = kernels.launch_counts()["int8_matmul"]
     got = I8.int8_matmul(x, w, scale, bm=bm, bk=bk, bn=bn)
     again = I8.int8_matmul(x, w, scale, bm=bm, bk=bk, bn=bn)
     torch.cuda.synchronize()
-    assert I8.launch_count() == before + 2
+    assert kernels.launch_counts()["int8_matmul"] == before + 2
     assert torch.equal(got, again)
     want = I8.int8_matmul_plain(x, w, scale, bm=bm, bk=bk, bn=bn)
     _check(got, want, 0)
@@ -1038,11 +1044,11 @@ def test_fixed_point_matmul_gpu_equals_cpu(dev):
     for d in (dev, torch.device("cpu")):
         xt = torch.from_numpy(x).to(d).requires_grad_()
         wt = torch.from_numpy(w).to(d).requires_grad_()
-        before = I8.launch_count()
+        before = kernels.launch_counts()["int8_matmul"]
         y = OPS.fixed_point_matmul(xt, wt)
         y.backward(torch.from_numpy(g).to(d))
         outs[d.type] = (y.detach().cpu(), xt.grad.cpu(), wt.grad.cpu(),
-                        I8.launch_count() - before)
+                        kernels.launch_counts()["int8_matmul"] - before)
     (y, dx, dw, n), (y0, dx0, dw0, n0) = outs["cuda"], outs["cpu"]
     assert n == 1 and n0 == 0
     assert torch.equal(y, y0)
@@ -1082,11 +1088,11 @@ def _caller_tile(n):
 def _int8_matmul_checked(x, w, scale, per_cout, bm, bk, bn):
     """Two launches of K4, bit-identical, each counted once, bit-equal to the
     plain version and to ``int8_matmul_ref``; sums past 2^24 once K >= 1152."""
-    before = I8.launch_count()
+    before = kernels.launch_counts()["int8_matmul"]
     got = I8.int8_matmul(x, w, scale, bm=bm, bk=bk, bn=bn)
     again = I8.int8_matmul(x, w, scale, bm=bm, bk=bk, bn=bn)
     torch.cuda.synchronize()
-    assert I8.launch_count() == before + 2
+    assert kernels.launch_counts()["int8_matmul"] == before + 2
     assert torch.equal(got, again)
     _check(got, I8.int8_matmul_plain(x, w, scale, bm=bm, bk=bk, bn=bn), 0)
     _check(got, REF.int8_matmul_ref(x, w, scale if per_cout else float(scale)), 0)
@@ -1223,10 +1229,10 @@ def test_blocksparse_bench_levels_on_the_card(dev, target):
     t, x, w, tm, plan, f = next(lv for lv in BS.levels(dev) if lv[0] == target)
     cpu_tm = next(lv[3] for lv in BS.levels(torch.device("cpu")) if lv[0] == target)
     assert plan.skipped_tiles == int((~cpu_tm).sum()) == {0.25: 16, 0.5: 32, 0.75: 48}[target]
-    before = BSM.launch_count()
+    before = kernels.launch_counts()["block_sparse_matmul"]
     got = f(x, w)
     torch.cuda.synchronize()
-    assert BSM.launch_count() == before + 1
+    assert kernels.launch_counts()["block_sparse_matmul"] == before + 1
     want = BSM.block_sparse_matmul_plain(x, w, torch.from_numpy(plan.idx).to(dev),
                                          torch.from_numpy(plan.cnt).to(dev),
                                          block=BS.BLOCK, bm=128)

@@ -41,9 +41,9 @@ def test_int8_matmul_bit_exact_vs_jax(M, K, N, per_cout):
     x, w, rs = _codes(M, K, N, M + K + N)
     scale = (rs.uniform(1e-3, 1e-1, N).astype(np.float32) if per_cout
              else np.asarray([1.0 / 512], np.float32))
-    before = TI.launch_count()
+    before = TK.launch_counts()["int8_matmul"]
     got = TI.int8_matmul(torch.from_numpy(x), torch.from_numpy(w), torch.from_numpy(scale))
-    assert TI.launch_count() == before                     # CPU: the plain version
+    assert TK.launch_counts()["int8_matmul"] == before     # CPU: the plain version
     assert got.dtype == torch.float32 and tuple(got.shape) == (M, N)
     want = np.asarray(j_int8_matmul(jnp.asarray(x), jnp.asarray(w), jnp.asarray(scale),
                                     interpret=True))
